@@ -1,0 +1,346 @@
+"""Batch-1 two-phase serving engine (counterpart of vits_tpu/infer.py's
+EmoVITS): a deployment directory (config.json + checkpoint.npz written by
+the JAX package), speaker-id remaps `*.map` and per-speaker emotion banks
+`<spkid>.emo` with mtime reload, the pre-sampled noise ring, bucketed
+two-phase inference, and the int8 decoder's calibrate -> quantize ->
+correlation-gate flow.
+
+Phase 1 encodes text and predicts durations on the device; the host turns
+durations into the alignment and slices the noise ring; phase 2 runs the
+flows and the decoder. With `quantize=True` the first
+`VITS_TPU_Q8_CALIB_REQUESTS` requests (default 8) are served by the float
+decoder while their activation max-abs values are recorded; the decoder is
+then quantized and, if its waveform correlates with the float decode on the
+freezing request (`VITS_TPU_Q8_MIN_CORR`, default 0.995), every later
+request decodes in int8, each ResBlock2 chain through the CUDA kernel of
+`vits_tpu_torch.nn.rb_chain` on the GPU.
+
+Entry points run on `cuda` unless `device="cpu"` is passed. fp32 serving on
+the GPU turns TF32 off for cuDNN convolutions and cuBLAS matmuls
+(`torch.backends.cudnn.allow_tf32`, `torch.backends.cuda.matmul.allow_tf32`),
+process-wide: TF32 would move the calibration values and the float decode
+the gate reads.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from vits_tpu_torch import config as config_mod
+from vits_tpu_torch.convert import params_from_jax
+from vits_tpu_torch.device import resolve_device
+from vits_tpu_torch.models.synthesizer import Synthesizer
+from vits_tpu_torch.ops.seq import infer_path
+from vits_tpu_torch.utils import checkpoint as ckpt_mod
+from vits_tpu_torch.utils.summary import logger
+
+
+def find_files(root_dir: str, suffix: str):
+    out = []
+    for root, _, files in os.walk(root_dir, followlinks=True):
+        for fn in files:
+            if fn.endswith(suffix):
+                out.append(os.path.join(root, fn))
+    return out
+
+
+class EmoVITS:
+    """Two-phase bucketed TTS inference on the port."""
+
+    def __init__(self, checkpoint_path: Optional[str] = None, *, device=None,
+                 text_quantum: int = 32, frame_quantum: int = 64,
+                 compute_dtype=None, quantize: Optional[bool] = None):
+        self.device = resolve_device(device)
+        if compute_dtype is None:
+            compute_dtype = os.environ.get("VITS_TPU_DTYPE", "fp32")
+        if compute_dtype not in ("fp32", torch.float32):
+            raise ValueError(f"compute_dtype {compute_dtype!r}: the port serves fp32 only "
+                             "(bf16 serving is not ported yet)")
+        self.compute_dtype = torch.float32
+        if self.device.type == "cuda":
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        if quantize is None:
+            quantize = os.environ.get("VITS_TPU_QUANTIZE", "0") not in ("0", "", "false")
+        self.quantize = bool(quantize)
+        if checkpoint_path is None:
+            checkpoint_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                           "..", "checkpoint", "checkpoint.npz")
+        if not checkpoint_path.endswith(".npz"):
+            raise ValueError(f"{checkpoint_path}: the port reads the JAX package's .npz "
+                             "checkpoints only")
+        self.res_root_path = os.path.dirname(checkpoint_path)
+        hps = config_mod.get_hparams_from_file(os.path.join(self.res_root_path, "config.json"))
+        self.hps = hps
+        self.sampling_rate = hps.data.sampling_rate
+        self.hop_size = hps.data.hop_length
+        self.text_channels = hps.data.text_channels
+        self.inter_channels = hps.model.inter_channels
+        self.num_speaker = hps.data.n_speakers
+        self.noise_scale = hps.data.noise_scale
+        self.text_quantum = text_quantum
+        self.frame_quantum = frame_quantum
+        self.max_text_len = getattr(hps.data, "max_text_len", 384)
+
+        # speaker id remaps + emotion banks (hot-reloadable)
+        self.spkid_mapping: Dict[int, int] = {}
+        self.spkid_mapping_mtime: Dict[str, int] = {}
+        for map_path in find_files(self.res_root_path, ".map"):
+            self._load_spkid_mapping(map_path)
+        self.spk_emo_embed: Dict[int, np.ndarray] = {}
+        self.spk_emo_embed_mtime: Dict[str, int] = {}
+        for emo_path in find_files(self.res_root_path, ".emo"):
+            try:
+                spkid = int(os.path.splitext(os.path.basename(emo_path))[0])
+            except ValueError:
+                continue
+            self._load_spk_emo_embed(spkid)
+
+        # model: the JAX package's parameter tree, weight norm folded
+        tree, _, _ = ckpt_mod.read_checkpoint(checkpoint_path)
+        self.synth = params_from_jax(tree["model"], Synthesizer.from_hps(hps))
+        self.synth.to(self.device).eval()
+
+        # pre-sampled noise ring buffer
+        rng = np.random.RandomState(12345)
+        self.noise = (rng.randn(self.inter_channels * 4096) * self.noise_scale).astype(np.float32)
+
+        # int8 decoder: a running max-abs over the first q8_calib_requests
+        # requests (served by the float decoder), frozen with a margin and
+        # gated on waveform correlation with the float decode
+        self.dec_q8 = None
+        self.q8_corr: Optional[float] = None
+        self._q8_record = None
+        self._q8_seen = 0
+        self.q8_calib_requests = max(1, int(os.environ.get("VITS_TPU_Q8_CALIB_REQUESTS", "8")))
+        self.q8_margin = float(os.environ.get("VITS_TPU_Q8_MARGIN", "1.1"))
+        self.q8_min_corr = float(os.environ.get("VITS_TPU_Q8_MIN_CORR", "0.995"))
+
+    # ---------------- resources ----------------
+    def _load_spkid_mapping(self, mapfn: str):
+        if not os.path.exists(mapfn):
+            return
+        with open(mapfn, "rt") as f:
+            for line in f:
+                line = line.strip()
+                if not line or line[0] == "#":
+                    continue
+                arr = line.split()
+                if len(arr) != 2 or not (arr[0].lstrip("-").isdigit()
+                                         and arr[1].lstrip("-").isdigit()):
+                    continue
+                self.spkid_mapping[int(arr[0])] = int(arr[1])
+        self.spkid_mapping_mtime[mapfn] = int(os.stat(mapfn).st_mtime)
+
+    def _load_spk_emo_embed(self, spkid: int):
+        emo_path = os.path.join(self.res_root_path, f"{spkid}.emo")
+        if os.path.exists(emo_path):
+            emb = np.fromfile(emo_path, dtype=np.float32).reshape(-1, 1024)
+            self.spk_emo_embed[spkid] = emb
+            self.spk_emo_embed_mtime[emo_path] = int(os.stat(emo_path).st_mtime)
+            return emb
+        return None
+
+    def _get_spk_emo_embed(self, emo: tuple) -> np.ndarray:
+        if isinstance(emo[0], (int, np.integer)):
+            emb = self.spk_emo_embed.get(int(emo[0]))
+            if emb is None:
+                emb = self._load_spk_emo_embed(int(emo[0]))
+            if emb is None:
+                raise ValueError(f"no emotion bank for speaker {emo[0]}")
+        elif isinstance(emo[0], np.ndarray):
+            emb = emo[0].reshape(-1, 1024).astype(np.float32)
+        else:
+            raise ValueError("emo[0] must be int or ndarray")
+        eid = -1 if len(emo) == 1 else int(emo[1])
+        if eid < 0 or eid >= emb.shape[0]:
+            eid = np.random.randint(0, emb.shape[0])
+        return emb[eid]
+
+    def update(self):
+        """mtime-driven hot reload of maps and banks."""
+        for map_path in list(self.spkid_mapping_mtime.keys()):
+            if not os.path.exists(map_path):
+                self.spkid_mapping_mtime.pop(map_path)
+                continue
+            if int(os.stat(map_path).st_mtime) != self.spkid_mapping_mtime[map_path]:
+                self._load_spkid_mapping(map_path)
+        for emo_path in list(self.spk_emo_embed_mtime.keys()):
+            if not os.path.exists(emo_path):
+                self.spk_emo_embed_mtime.pop(emo_path)
+                continue
+            if int(os.stat(emo_path).st_mtime) != self.spk_emo_embed_mtime[emo_path]:
+                self._load_spk_emo_embed(int(os.path.splitext(os.path.basename(emo_path))[0]))
+
+    # ---------------- phases ----------------
+    def _tensor(self, a, dtype=torch.float32):
+        return torch.as_tensor(a, dtype=dtype).to(self.device)
+
+    @staticmethod
+    def _quantize(n, q, cap=None):
+        m = ((n + q - 1) // q) * q
+        return min(m, cap) if cap else m
+
+    def _resolve_request(self, spkid: int, text: np.ndarray, emo):
+        """Speaker remap + emotion-vector resolution."""
+        x_length = int(text.shape[0])
+        spkid = self.spkid_mapping.get(spkid, spkid)
+        if not 0 <= spkid < self.num_speaker:
+            raise ValueError(f"spkid={spkid} outside [0, {self.num_speaker})")
+        if isinstance(emo, np.ndarray) and emo.ndim <= 2 and emo.size == 1024:
+            emo_vec = emo.reshape(-1).astype(np.float32)
+        else:
+            if emo is None:
+                emo = (spkid, -1)
+            if isinstance(emo[0], (int, np.integer)):
+                first = self.spkid_mapping.get(int(emo[0]), int(emo[0])) if emo[0] != 0 else spkid
+                emo = (first, -1 if len(emo) == 1 else emo[1])
+            emo_vec = self._get_spk_emo_embed(emo)
+        return spkid, emo_vec, x_length
+
+    def _run_phase1(self, spkid, text, emo_vec, x_length, x_pad):
+        x = np.zeros((1, x_pad, self.text_channels), np.float32)
+        x[0, :x_length] = text[:x_pad]
+        x_mask = np.zeros((1, x_pad, 1), np.float32)
+        x_mask[0, :x_length] = 1.0
+        return self.synth.infer_p1(self._tensor(x), self._tensor(emo_vec[None]),
+                                   self._tensor([spkid], torch.long),
+                                   x_mask=self._tensor(x_mask))
+
+    def _alignment(self, w_ceil, x_length, x_pad, y_length, y_pad):
+        """Host-side duration expansion + noise-ring slice."""
+        dur = np.zeros((1, x_pad), np.float32)
+        dur[0, :x_length] = w_ceil
+        attn = infer_path(self._tensor(dur), y_pad)
+        nl = y_pad * self.inter_channels
+        start = np.random.randint(max(self.noise.size - nl, 1))
+        noise = np.resize(self.noise[start:start + nl], (nl,)).reshape(
+            1, y_pad, self.inter_channels)
+        y_mask = np.zeros((1, y_pad, 1), np.float32)
+        y_mask[0, :y_length] = 1.0
+        return attn, self._tensor(noise), self._tensor(y_mask)
+
+    def _q8_observe(self, attn, m_p, s_p, g, noise, y_mask) -> bool:
+        """Fold one request's activation statistics into the running record;
+        freeze and gate the int8 decoder once enough requests were seen.
+        Returns True once the int8 decoder serves."""
+        if self.dec_q8 is not None:
+            return True
+        synth = self.synth
+        z_cal = synth.latent(attn, m_p, s_p, g, noise, y_mask)
+        record = synth.dec.calibrate(z_cal, g=g, x_mask=y_mask)
+        if self._q8_record is None:
+            self._q8_record = record
+        else:
+            self._q8_record = {k: torch.maximum(v, record[k])
+                               for k, v in self._q8_record.items()}
+        self._q8_seen += 1
+        if self._q8_seen < self.q8_calib_requests:
+            return False
+        scales = {k: v * self.q8_margin for k, v in self._q8_record.items()}
+        dec_q8 = synth.dec.quantize(scales)
+        # one-time quality gate: the int8 decode must correlate with the
+        # float decode on the freezing request
+        wav_f = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask).cpu().numpy().ravel()
+        wav_q = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask,
+                               dec_q8=dec_q8).cpu().numpy().ravel()
+        denom = float(np.linalg.norm(wav_f) * np.linalg.norm(wav_q))
+        corr = float(wav_f @ wav_q) / denom if denom > 0 else 0.0
+        self.q8_corr = corr
+        if corr < self.q8_min_corr:
+            logger.warning("int8 decoder failed the correlation gate (%.4f < %.4f); "
+                           "serving stays on the float path", corr, self.q8_min_corr)
+            self.quantize = False
+            return False
+        self.dec_q8 = dec_q8
+        return True
+
+    @torch.inference_mode()
+    def infer(self, spkid: int, text: np.ndarray, emo=None, *,
+              duration_rate: float = 1.0):
+        """text: (N, text_channels) float32 -> (wav float32 (T,), emotion
+        vector used). Two-phase: the fused and streaming paths are not
+        ported yet."""
+        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
+        m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
+
+        # host: durations -> alignment
+        w = np.exp(logw.cpu().numpy().astype(np.float32))[0, :x_length, 0] * duration_rate
+        w_ceil = np.ceil(w)
+        y_length = max(int(w_ceil.sum()), 1)
+        y_pad = self._quantize(y_length, self.frame_quantum)
+        attn, noise, y_mask = self._alignment(w_ceil, x_length, x_pad, y_length, y_pad)
+        dec_q8 = None
+        if self.quantize and self._q8_observe(attn, m_p, s_p, g, noise, y_mask):
+            dec_q8 = self.dec_q8
+        wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask, dec_q8=dec_q8)
+        wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
+        return wav, emo_vec
+
+
+def main(argv=None):
+    """CLI decoding of .vec feature files."""
+    import argparse
+    import logging
+    import time
+    from vits_tpu_torch.utils.audio import write_wav
+
+    parser = argparse.ArgumentParser(description="Decode dumped features with the port's "
+                                                 "TTS generator.")
+    parser.add_argument("--scpfn", "--scp", type=str, required=True)
+    parser.add_argument("--spkid", "--sid", default=None, type=int)
+    parser.add_argument("--emotion", "--emo", default=None, type=str,
+                        help="(spkid|path, eid) emotion selector")
+    parser.add_argument("--outdir", type=str, required=True)
+    parser.add_argument("--checkpoint", "--ckpt", default=None, type=str)
+    parser.add_argument("--verbose", type=int, default=1)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default cuda; 'cpu' to run on the CPU)")
+    parser.add_argument("--quantize", action="store_true", default=None,
+                        help="int8 decoder serving mode")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO if args.verbose else logging.WARN)
+    os.makedirs(args.outdir, exist_ok=True)
+    model = EmoVITS(args.checkpoint, device=args.device, quantize=args.quantize)
+
+    features = {}
+    with open(args.scpfn) as fid:
+        for line in fid:
+            line = line.strip()
+            if not line or line[0] == "#":
+                continue
+            parts = line.split("|")
+            utt_id = os.path.splitext(os.path.basename(parts[0]))[0]
+            spkid = args.spkid if args.spkid is not None else (
+                int(parts[-1]) if len(parts) > 1 else 1)
+            emo = None
+            src = args.emotion if args.emotion is not None else (
+                parts[1] if len(parts) > 2 else None)
+            if src:
+                e = src.split(":")
+                if os.path.exists(e[0]):
+                    e0 = np.fromfile(e[0], dtype=np.float32).reshape(-1, 1024)
+                else:
+                    e0 = int(e[0])
+                emo = (e0, int(e[1]) if len(e) > 1 else -1)
+            features[utt_id] = (spkid, emo, parts[0])
+
+    total_rtf, idx = 0.0, 0
+    for idx, (utt_id, (spkid, emo, vecfn)) in enumerate(features.items(), 1):
+        start = time.time()
+        text = np.fromfile(vecfn, dtype=np.float32).reshape(-1, model.text_channels)
+        wav, _ = model.infer(spkid, text, emo)
+        write_wav(os.path.join(args.outdir, f"{utt_id}.wav"), wav, model.sampling_rate)
+        total_rtf += (time.time() - start) / (len(wav) / model.sampling_rate)
+    if idx:
+        logging.info("Finished generation of %d utterances (RTF = %.3f).", idx, total_rtf / idx)
+
+
+if __name__ == "__main__":
+    main()

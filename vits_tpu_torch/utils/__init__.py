@@ -1,0 +1,1 @@
+"""utils of the port (see vits_tpu_torch/__init__.py)."""
