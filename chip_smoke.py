@@ -5,11 +5,16 @@
 
 Phases, each of which must pass (the script exits non-zero otherwise):
   1. build    - compile every CUDA kernel of the port from csrc/ with nvcc
-                (sm_90a), print the build seconds and ptxas' resource report;
-  2. kernels  - hold the int8 ResBlock2-chain kernel against its plain PyTorch
-                version at the 12 base-config chain shapes (C = 256/128/64/32
-                x k = 3/7/11, dilations 1/3/5, B = 1, 256 frames, ragged valid
-                length); print kernel ms, plain ms, bound ms and errors;
+                (sm_90a), one nvcc per source, all started together; print
+                the build seconds and ptxas' resource report;
+  2. kernels  - hold K1, the int8 ResBlock2-chain kernel, against its plain
+                PyTorch version at the 12 base-config chain shapes (C =
+                256/128/64/32 x k = 3/7/11, dilations 1/3/5, B = 1, 256
+                frames, ragged valid length), and K2, MAS, against its plain
+                version, bit-exact, at (16, 400, 96) with the training
+                bench's lengths, (32, 1000, 384) (the base config's longest
+                utterance and text), (1, 1000, 1) and a t_x == t_y case;
+                print kernel ms, plain ms, bound ms and errors;
   3. serving  - write a seeded random base-config checkpoint at full width,
                 serve it with EmoVITS(device="cuda", quantize=True): 8
                 calibration requests (float decodes), then int8 requests
@@ -17,7 +22,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 (launch counts checked), each compared with the float decode
                 of the same request; one request's float decode is also held
                 against the CPU;
-  4. card     - print the card's name and power limit.
+  4. training - the base config's mel/MPD GAN step at full width (seeded
+                random weights with weight norm, AdamW from
+                build_optimizers), on the training bench's synthetic batch
+                (B 16, T_x 96, 400 spec frames, spec shipped): 1 warm-up and
+                5 timed steps, each launching K2 exactly once, with finite
+                losses and moved parameters; print step ms, audio-s/s and
+                peak memory; then one step on the card against the same step
+                on the CPU (B = 2, same weights and noise, dropout off): the
+                losses agree and the MAS paths are equal;
+  5. card     - print the card's name and power limit.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -40,6 +54,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 INT8_PEAK = 1979e12   # H100 SXM dense int8 ops/s (NVIDIA data sheet)
 HBM_BW = 3.35e12      # H100 SXM HBM3 bytes/s
 SEED = 1234
+TRAIN_B, TRAIN_TX, TRAIN_TY = 16, 96, 400  # bench_train.py's batch
+TRAIN_STEPS = 5                            # timed, after 1 warm-up step
+# card vs CPU on one training step (B = 2): fp32 on both, TF32 off, but
+# cuDNN and the CPU's convolutions sum in other orders through ~60 layers
+LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-5
 CHAIN_FRAMES = 256    # T_y of the kernel check: M = 256 * (8, 48, 96, 192)
 N_CALIB = 8
 N_INT8 = 4
@@ -145,6 +164,174 @@ def phase_kernels(dev):
         f"{CHAIN_FRAMES}-frame request: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
     return rows, worst, tot
+
+
+def _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs):
+    from vits_tpu_torch.ops.seq import sequence_mask
+    t_ys = torch.tensor(t_ys, dtype=torch.int32)
+    t_xs = torch.tensor(t_xs, dtype=torch.int32)
+    mask = (sequence_mask(t_ys, T_y)[:, :, None] & sequence_mask(t_xs, T_x)[:, None, :]).float()
+    neg = torch.randn(B, T_y, T_x, generator=gen) * 10 * mask  # maximum_path's neg_cent * mask
+    return neg.to(dev), t_ys.to(dev), t_xs.to(dev)
+
+
+def phase_mas(dev):
+    """K2 against its plain version, bit-exact, at the listed shapes."""
+    from vits_tpu_torch.ops import mas
+    gen = torch.Generator().manual_seed(SEED)
+    cases = [
+        ("train bench", 16, 400, 96, [400 - 13 * (i % 4) for i in range(16)],
+         [96 - i % 7 for i in range(16)]),
+        ("longest", 32, 1000, 384, [1000] * 32, [384] * 32),
+        ("one token", 1, 1000, 1, [1000], [1]),
+        ("t_x == t_y", 4, 200, 200, [200, 150, 77, 1], [200, 150, 77, 1]),
+    ]
+    rows = []
+    for name, B, T_y, T_x, t_ys, t_xs in cases:
+        neg, ty, tx = _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs)
+        out = mas.maximum_path_cuda(neg, ty, tx)
+        ref = mas.maximum_path_plain(neg, ty, tx)
+        torch.cuda.synchronize()
+        equal = torch.equal(out, ref) and torch.equal(out.sum(dim=(1, 2)), ty.float())
+        err = float((out - ref).abs().max())
+        ms = cuda_ms(lambda: mas.maximum_path_cuda(neg, ty, tx), iters=20)
+        plain_ms = cuda_ms(lambda: mas.maximum_path_plain(neg, ty, tx), iters=1, warmup=1)
+        bound = mas.mas_bytes(ty, tx, T_y, T_x) / HBM_BW * 1e3
+        log(f"[kernels] mas ({B}, {T_y}, {T_x}) {name}: kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.3e} ms (bytes)  max_abs_err {err:.1e} "
+            f"(bit-exact required)  {'OK' if equal else 'FAIL'}")
+        rows.append(dict(name=name, shape=(B, T_y, T_x), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound, max_abs_err=err, ok=equal))
+        del neg, out, ref
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"K2 differs from its plain version at {len(bad)} shape(s): {bad}")
+    return rows
+
+
+def _bench_batch(hps, dev, B, T_x, T_y):
+    """bench_train.py's synthetic batch (numpy seed 0), spec shipped."""
+    rng = np.random.RandomState(0)
+    F = hps.data.filter_length // 2 + 1
+    hop = hps.data.hop_length
+    b = {
+        "x": rng.randn(B, T_x, hps.data.text_channels).astype(np.float32),
+        "x_lengths": np.array([T_x - (i % 7) for i in range(B)], np.int32),
+        "spec": np.abs(rng.randn(B, T_y, F)).astype(np.float32),
+        "spec_lengths": np.array([T_y - 13 * (i % 4) for i in range(B)], np.int32),
+        "wav": rng.uniform(-0.5, 0.5, (B, T_y * hop)).astype(np.float32),
+        "emo": rng.randn(B, 1024).astype(np.float32),
+        "sid": rng.randint(0, hps.data.n_speakers, B).astype(np.int64),
+    }
+    return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+
+def _finite(metrics) -> bool:
+    return bool(torch.stack([v.float() for v in metrics.values() if v.ndim == 0])
+                .isfinite().all())
+
+
+def phase_training(dev):
+    """The mel/MPD step at full base width; K2 launches once per step."""
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.ops import mas
+    from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
+                                           count_params, init_state)
+    from vits_tpu_torch.train.step import TrainStepConfig, make_train_step
+
+    hps = get_hparams_from_file(default_config_path("base"))
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    t0 = time.perf_counter()
+    synth, disc = build_models(hps)
+    gen_opt, disc_opt = build_optimizers(hps)
+    state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=SEED, device=dev)
+    m = hps.model
+    log(f"[training] base config at full width (gin {m.gin_channels}, "
+        f"{hps.data.n_speakers} speakers, posterior {m.n_layers_q} layers, decoder "
+        f"{m.upsample_initial_channel}->{m.upsample_initial_channel // 16} channels, MPD "
+        f"periods 2/3/5/7/11): G {count_params(synth)} parameters (+ enc_q and weight-norm "
+        f"gains: {count_params(synth, exclude=())}), D {count_params(disc, exclude=())}; "
+        f"built and initialised in {time.perf_counter() - t0:.1f} s")
+    step = make_train_step(TrainStepConfig.from_hps(hps))
+    batch = _bench_batch(hps, dev, B, T_x, T_y)
+    hop, sr = hps.data.hop_length, hps.data.sampling_rate
+    audio_s = float(batch["spec_lengths"].sum()) * hop / sr
+    noise_gen = torch.Generator(device=dev).manual_seed(SEED)
+    lr = hps.train.learning_rate
+    times = []
+    mas.counter.launches = 0                 # main path starts here
+    for i in range(1 + TRAIN_STEPS):
+        noise = synth.draw_noise(B, T_x, T_y, noise_gen)
+        params = {k: [p.detach().clone() for p in mod.parameters()]
+                  for k, mod in (("G", synth), ("D", disc))}
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        before = mas.counter.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, noise, lr, lr, align_noise_at(hps, state["step"]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launched = mas.counter.launches - before
+        moved = {k: any(not torch.equal(a, p) for a, p in zip(params[k], mod.parameters()))
+                 for k, mod in (("G", synth), ("D", disc))}
+        if launched != 1:
+            raise RuntimeError(f"training step {i}: K2 launched {launched} times, expected 1")
+        if not _finite(metrics):
+            raise RuntimeError(f"training step {i}: non-finite losses "
+                               f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
+        if not all(moved.values()):
+            raise RuntimeError(f"training step {i}: parameters did not change: {moved}")
+        if i:
+            times.append(ms)
+        log(f"[training] step {i} {'warm-up' if i == 0 else 'timed  '}: {ms:.1f} ms, K2 "
+            f"launches {launched}, loss_g_total {float(metrics['loss_g_total']):.4f}, "
+            f"loss_disc {float(metrics['loss_disc']):.4f}, loss_mel "
+            f"{float(metrics['loss_mel']):.4f}, grad_norm_g {float(metrics['grad_norm_g']):.4f}")
+        del params
+    main_launches = mas.counter.launches     # main path ends here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    med = float(np.median(times))
+    log(f"[training] {TRAIN_STEPS} timed steps: median {med:.1f} ms (min {min(times):.1f}, "
+        f"max {max(times):.1f}), {audio_s / (med / 1e3):.1f} audio-s/s "
+        f"({audio_s:.2f} audio s per step), peak memory {peak:.2f} GiB; K2 launches on "
+        f"the main path {main_launches} in {1 + TRAIN_STEPS} steps")
+
+    # one step on the card against the same step on the CPU: B = 2, the same
+    # weights and noise, dropout off (eval mode) so both run one function
+    small = {k: v[:2] for k, v in batch.items()}
+    noise = {k: v[:2] for k, v in synth.draw_noise(B, T_x, T_y, noise_gen).items()}
+    runs = {}
+    for where in ("cuda", "cpu"):
+        d = dev if where == "cuda" else torch.device("cpu")
+        g_m = copy.deepcopy(synth).to(d).eval()
+        d_m = copy.deepcopy(disc).to(d).eval()
+        b = {k: v.to(d) for k, v in small.items()}
+        nz = {k: v.to(d) for k, v in noise.items()}
+        with torch.no_grad():
+            attn = g_m(b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], b["emo"],
+                       b["sid"], nz, align_noise=0.01)["attn"].cpu()
+        st = {"gen": g_m, "disc": d_m, "gen_opt": gen_opt.init(g_m.parameters()),
+              "disc_opt": disc_opt.init(d_m.parameters()), "step": 0, "rng": None}
+        t0 = time.perf_counter()
+        _, mt = step(st, b, nz, lr, lr, 0.01)
+        runs[where] = (attn, {k: v.cpu() for k, v in mt.items()}, time.perf_counter() - t0)
+        del g_m, d_m, st
+    (a_gpu, m_gpu, _), (a_cpu, m_cpu, cpu_s) = runs["cuda"], runs["cpu"]
+    worst = {}
+    for k in ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_dur", "loss_kl",
+              "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g"):
+        a, c = float(m_gpu[k]), float(m_cpu[k])
+        worst[k] = abs(a - c) / max(abs(c), LOSS_ATOL / LOSS_RTOL)
+        if abs(a - c) > LOSS_ATOL + LOSS_RTOL * abs(c):
+            raise RuntimeError(f"card vs CPU step: {k} {a} vs {c}")
+    if not torch.equal(a_gpu, a_cpu):
+        raise RuntimeError("card vs CPU step: the MAS paths differ "
+                           f"({int((a_gpu != a_cpu).sum())} cells)")
+    log(f"[training] card vs CPU, one step at B = 2 (CPU {cpu_s:.1f} s): MAS paths equal "
+        f"({int(a_gpu.sum())} cells on the path); largest relative loss difference "
+        f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}; tol {LOSS_RTOL:.0e})")
+    return main_launches, med, audio_s, peak
 
 
 def _write_checkpoint(dirpath, hps_dict, dev_gen_seed):
@@ -314,10 +501,15 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     phase_build()
     rows, worst, tot = phase_kernels(dev)
+    mas_rows = phase_mas(dev)
     launches, lat, audio_s = phase_serving(dev)
     if launches <= 0:
         raise RuntimeError("the serving path launched K1 no time")
+    mas_launches, _, _, _ = phase_training(dev)
+    if mas_launches <= 0:
+        raise RuntimeError("the training path launched K2 no time")
     card = card_line()
+    main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
         "name": "rb2_chain_q8",
         "route": "cuda",
@@ -329,6 +521,18 @@ def main() -> int:
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
         "bound_by": "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "mas",
+        "route": "cuda",
+        "source": "vits_tpu_torch/csrc/mas.cu",
+        "replaces": "vits_tpu/ops/mas.py:130",
+        "launches": mas_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
+        "ms": main["ms"],
+        "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": None,
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,8 @@
-"""The port's CUDA kernel on the card: the int8 ResBlock2 chain against its
+"""The port's CUDA kernels on the card: the int8 ResBlock2 chain against its
 plain PyTorch version at small shapes (tolerance of chip_smoke.py: atol
 0.05 * max(1, max|plain|), under 1% of elements off by more than
-1e-3 * max|plain|). Marked `cuda`; skips where no CUDA device is present.
+1e-3 * max|plain|), and MAS against its plain version, array-equal (the
+same f32 adds and maxes). Marked `cuda`; skips where no CUDA device is present.
 Run on the GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (tests/conftest.py
 imports jax, which that machine need not have)."""
@@ -12,6 +13,7 @@ import torch
 from vits_tpu_torch.models.modules import ResBlock2
 from vits_tpu_torch.nn import rb_chain
 from vits_tpu_torch.nn.core import init_weights
+from vits_tpu_torch.ops import mas
 
 pytestmark = pytest.mark.cuda
 
@@ -47,3 +49,25 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M):
     peak = float(ref.abs().max())
     assert float(diff.max()) <= 0.05 * max(1.0, peak)
     assert float((diff > 1e-3 * peak).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("B,T_y,T_x,case", [(16, 400, 96, "bench"), (3, 37, 37, "diagonal"),
+                                            (2, 1000, 1, "one_token"),
+                                            (2, 1200, 1100, "two_columns_per_thread"),
+                                            (2, 4000, 512, "bits_in_global_scratch")])
+def test_mas_kernel_equals_plain(cuda, B, T_y, T_x, case):
+    gen = torch.Generator().manual_seed(T_y + T_x)
+    neg = (torch.randn(B, T_y, T_x, generator=gen) * 10).to(cuda)
+    if case == "diagonal":
+        t_ys = t_xs = torch.tensor([37, 20, 1], dtype=torch.int32)
+    else:
+        t_ys = torch.tensor([T_y - 13 * (i % 4) for i in range(B)], dtype=torch.int32)
+        t_xs = torch.tensor([max(T_x - i % 7, 1) for i in range(B)], dtype=torch.int32)
+    t_ys, t_xs = t_ys.to(cuda), t_xs.to(cuda)
+    before = mas.counter.launches
+    got = mas.maximum_path_cuda(neg, t_ys, t_xs)
+    assert mas.counter.launches - before == 1
+    want = mas.maximum_path_plain(neg, t_ys, t_xs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.sum(dim=(1, 2)), t_ys.float())

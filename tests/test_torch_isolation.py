@@ -12,15 +12,6 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-PORT_MODULES = [
-    "vits_tpu_torch", "vits_tpu_torch.config", "vits_tpu_torch.convert",
-    "vits_tpu_torch.device", "vits_tpu_torch.infer", "vits_tpu_torch.models.attentions",
-    "vits_tpu_torch.models.modules", "vits_tpu_torch.models.synthesizer",
-    "vits_tpu_torch.nn.core", "vits_tpu_torch.nn.quant", "vits_tpu_torch.nn.rb_chain",
-    "vits_tpu_torch.ops.seq", "vits_tpu_torch.utils.audio", "vits_tpu_torch.utils.checkpoint",
-    "vits_tpu_torch.utils.cuda_build", "vits_tpu_torch.utils.summary", "chip_smoke",
-]
-
 
 def _run(code, **kw):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -30,13 +21,18 @@ def _run(code, **kw):
 
 
 def test_import_loads_no_jax_and_no_vits_tpu():
-    code = ("import importlib, sys\n"
-            f"for m in {PORT_MODULES!r}:\n"
+    """Every module of the package (found by walking it, so new ones are
+    checked too) and chip_smoke.py import without loading jax or vits_tpu."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import vits_tpu_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages(vits_tpu_torch.__path__,\n"
+            "                                              'vits_tpu_torch.')]\n"
+            "for m in mods + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'vits_tpu'))\n"
-            "print(bad)\n"
-            "sys.exit(1 if bad else 0)\n")
+            "print(len(mods), bad)\n"
+            "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -51,6 +47,31 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EmoVITS(str(tmp_path / "checkpoint.npz"))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_training_state_needs_a_gpu_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from vits_tpu_torch.config import HParams
+    from vits_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from vits_tpu_torch.models.synthesizer import Synthesizer
+    from vits_tpu_torch.train.loop import init_state
+    from vits_tpu_torch.train.optim import Optimizer
+
+    def parts():
+        synth = Synthesizer(8, 4, 8, 8, 2, 1, 3, (3,), ((1,),), (2,), 64, (4,),
+                            n_speakers=2, gin_channels=4, spec_channels=5, segment_size=2,
+                            n_layers_q=1, hidden_size_d=4, n_flows=1, dilation_rate=(1,),
+                            weight_norm=True)
+        opt = Optimizer((0.8, 0.99), 1e-9, 0.0)
+        return synth, MultiPeriodDiscriminator(periods=(2,)), opt, opt
+
+    hps = HParams(train={"seed": 3})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(hps, *parts())
+    state = init_state(hps, *parts(), device="cpu")
+    assert next(state["gen"].parameters()).device.type == "cpu"
+    assert state["gen"].training and state["step"] == 0
 
 
 def test_kernel_wrapper_refuses_other_devices():

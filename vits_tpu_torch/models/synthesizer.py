@@ -1,12 +1,18 @@
-"""The VITS synthesizer's inference half (counterpart of
-vits_tpu/models/synthesizer.py): text encoder, duration predictor, reversed
-coupling flows, the HiFi-GAN decoder in float and int8, and the two-phase
-serving entry points `infer_p1` / `infer_p2` / `quantize_decoder`.
+"""The VITS synthesizer (counterpart of vits_tpu/models/synthesizer.py):
+text encoder, duration predictor, posterior encoder, coupling flows, the
+HiFi-GAN decoder in float and int8, the training graph `forward`, and the
+two-phase serving entry points `infer_p1` / `infer_p2` / `quantize_decoder`.
 
 Tensors are channel-last (B, T, C) at every public function, as in the JAX
 package. The decoder runs unpacked: the JAX package's phase packing is a TPU
 lane layout with the same numerics; its int8 scales are reproduced exactly
 (`vits_tpu_torch.nn.quant`).
+
+Serving builds the model with `Synthesizer.from_hps(hps)`: plain kernels (the
+checkpoint's weight norm folded) and no posterior encoder. Training builds it
+with `from_hps(hps, train=True)`: weight-norm g/v pairs where the JAX package
+has them, the posterior encoder, and the dropout rates. `forward` takes its
+noise as tensors (`draw_noise`), so the same noise can reach both packages.
 """
 
 from __future__ import annotations
@@ -20,13 +26,16 @@ from torch import nn
 from vits_tpu_torch.models.attentions import Encoder
 from vits_tpu_torch.models.modules import (
     LRELU_SLOPE,
+    WN,
     ResBlock2,
     ResidualCouplingLayer,
     flip_channels,
 )
 from vits_tpu_torch.nn import quant as Q
-from vits_tpu_torch.nn.core import Conv1d, ConvTranspose1d, Dense, Embedding, LayerNorm, leaky_relu
-from vits_tpu_torch.ops.seq import gen_sin_table
+from vits_tpu_torch.nn.core import (Conv1d, ConvTranspose1d, Dense, Embedding, LayerNorm,
+                                    dropout, leaky_relu)
+from vits_tpu_torch.ops import mas
+from vits_tpu_torch.ops.seq import gen_sin_table, rand_slice_segments, sequence_mask
 
 
 def _mask(x, m):
@@ -34,13 +43,15 @@ def _mask(x, m):
 
 
 class DurationPredictor(nn.Module):
-    """conv -> ReLU -> LN twice with two speaker-conditioning adds (inference;
-    the shipped configs' act_func_d is ReLU)."""
+    """conv -> ReLU -> LN (-> dropout in training mode) twice with two
+    speaker-conditioning adds (the shipped configs' act_func_d is ReLU). Its
+    inputs are detached: the duration loss trains this module alone."""
 
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int = 5,
-                 act_func: str = "ReLU", gin_channels: int = 0):
+                 act_func: str = "ReLU", gin_channels: int = 0, p_dropout: float = 0.0):
         super().__init__()
         f, k = filter_channels, kernel_size
+        self.p_dropout = p_dropout
         if act_func.lower() != "relu":
             raise NotImplementedError(f"act_func {act_func}: the port's duration predictor "
                                       "runs ReLU only")
@@ -53,11 +64,13 @@ class DurationPredictor(nn.Module):
         self.cond1 = Dense(gin_channels, f)
         self.cond2 = Dense(gin_channels, f)
 
-    def forward(self, x, x_mask=None, g=None):
+    def forward(self, x, x_mask=None, g=None, rng=None):
+        p = self.p_dropout if self.training else 0.0
+        x, g = x.detach(), g.detach()
         x = self.pre(x) + self.cond1(g)[:, None, :]
-        x = self.norm_1(torch.relu(self.conv_1(_mask(x, x_mask))))
+        x = dropout(self.norm_1(torch.relu(self.conv_1(_mask(x, x_mask)))), p, rng)
         x = x + self.cond2(g)[:, None, :]
-        x = self.norm_2(torch.relu(self.conv_2(_mask(x, x_mask))))
+        x = dropout(self.norm_2(torch.relu(self.conv_2(_mask(x, x_mask)))), p, rng)
         x = self.proj(_mask(x, x_mask))
         return _mask(x, x_mask)  # (B, T, 1) log-durations
 
@@ -69,7 +82,7 @@ class TextEncoder(nn.Module):
 
     def __init__(self, in_channels, out_channels, hidden_channels, filter_channels,
                  n_heads, n_layers, kernel_size, ffn="FFN2", gin_channels=0,
-                 max_pos: int = 256 + 128):
+                 max_pos: int = 256 + 128, p_dropout: float = 0.0):
         super().__init__()
         self.out_channels, self.hidden_channels, self.max_pos = (
             out_channels, hidden_channels, max_pos)
@@ -78,41 +91,73 @@ class TextEncoder(nn.Module):
         self.emo_proj = Dense(1024, h, init="xavier")
         self.alpha = nn.Parameter(torch.tensor(1.0))
         self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
-                               ffn=ffn, gin_channels=gin_channels)
+                               ffn=ffn, gin_channels=gin_channels, p_dropout=p_dropout)
         self.proj = Conv1d(h, out_channels * 2, 1, init="xavier")
 
     def reset_parameters(self, gen=None):
         with torch.no_grad():
             self.alpha.fill_(1.0)
 
-    def forward(self, x, x_mask=None, emo=None, g=None):
+    def forward(self, x, x_mask=None, emo=None, g=None, rng=None):
         h, T = self.hidden_channels, x.shape[1]
         x = self.emb["1"](self.emb["0"](x))
         x = x + self.emo_proj(emo)[:, None, :]
         pe = torch.from_numpy(gen_sin_table(max(self.max_pos, T), h)[:, :T]).to(x)
         x = x * math.sqrt(h) + pe * self.alpha
-        x = self.encoder(x, x_mask, g=g)
+        x = self.encoder(x, x_mask, g=g, rng=rng)
         stats = _mask(self.proj(x), x_mask)
         return x, stats[..., :self.out_channels], stats[..., self.out_channels:]
 
 
+class PosteriorEncoder(nn.Module):
+    """Linear spectrogram -> (z, m, logs) (vits_tpu PosteriorEncoder): 1x1
+    conv + LN, a speaker-independent WN stack, conv projection, then
+    z = m + eps * exp(logs), masked."""
+
+    def __init__(self, in_channels, out_channels, hidden_channels, kernel_size,
+                 dilation_rate, n_layers, weight_norm: bool = False):
+        super().__init__()
+        self.out_channels = out_channels
+        h = hidden_channels
+        self.pre = nn.ModuleDict({"0": Conv1d(in_channels, h, 1), "1": LayerNorm(h)})
+        self.enc = WN(h, kernel_size, dilation_rate, n_layers, weight_norm=weight_norm)
+        self.proj = Conv1d(h, out_channels * 2, 1)
+
+    def forward(self, x, x_mask, eps):
+        """x (B, T, spec_channels), x_mask (B, T, 1), eps (B, T,
+        out_channels) standard normal noise."""
+        x = _mask(self.pre["1"](self.pre["0"](x)), x_mask)
+        x = self.enc(x, x_mask)
+        stats = _mask(self.proj(x), x_mask)
+        m, logs = stats[..., :self.out_channels], stats[..., self.out_channels:]
+        return _mask(m + eps * torch.exp(logs), x_mask), m, logs
+
+
 class ResidualCouplingBlock(nn.Module):
-    """n_flows x (mean-only coupling + channel flip); reverse direction. The
-    flows sit at indices 0, 2, 4, ... as in the torch reference's ModuleList."""
+    """n_flows x (mean-only coupling + channel flip). The flows sit at
+    indices 0, 2, 4, ... as in the torch reference's ModuleList."""
 
     def __init__(self, channels, hidden_channels, kernel_size,
-                 dilation_rate: Sequence[int], n_layers, n_flows=4, gin_channels=0):
+                 dilation_rate: Sequence[int], n_layers, n_flows=4, gin_channels=0,
+                 weight_norm: bool = False):
         super().__init__()
         self.n_flows = n_flows
         self.flows = nn.ModuleDict({
             str(2 * i): ResidualCouplingLayer(channels, hidden_channels, kernel_size,
                                               dilation_rate[i], n_layers,
-                                              gin_channels=gin_channels)
+                                              gin_channels=gin_channels,
+                                              weight_norm=weight_norm)
             for i in range(n_flows)})
 
-    def forward(self, x, x_mask=None, g=None):
-        for i in reversed(range(self.n_flows)):
-            x = self.flows[str(2 * i)](flip_channels(x), x_mask, g=g)
+    def forward(self, x, x_mask=None, g=None, reverse: bool = True):
+        """reverse (inference): flip then the reverse coupling, last flow
+        first; forward (reverse=False, training): coupling then flip."""
+        if reverse:
+            for i in reversed(range(self.n_flows)):
+                x = self.flows[str(2 * i)](flip_channels(x), x_mask, g=g, reverse=True)
+            return x
+        for i in range(self.n_flows):
+            x = flip_channels(self.flows[str(2 * i)](x, x_mask, g=g, reverse=False))
         return x
 
 
@@ -124,7 +169,7 @@ class Generator(nn.Module):
 
     def __init__(self, initial_channel, resblock, resblock_kernel_sizes,
                  resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
-                 upsample_kernel_sizes, gin_channels=0):
+                 upsample_kernel_sizes, gin_channels=0, weight_norm: bool = False):
         super().__init__()
         if str(resblock) != "2":
             raise NotImplementedError("the port serves ResBlock2 decoders (the shipped "
@@ -138,11 +183,11 @@ class Generator(nn.Module):
         ups, rbs = {}, {}
         for i, (u, k) in enumerate(zip(upsample_rates, upsample_kernel_sizes)):
             ups[str(i)] = ConvTranspose1d(uic // 2 ** i, uic // 2 ** (i + 1), k, u,
-                                          padding=(k - u) // 2)
+                                          padding=(k - u) // 2, weight_norm=weight_norm)
             for j in range(self.num_kernels):
                 rbs[str(i * self.num_kernels + j)] = ResBlock2(
                     uic // 2 ** (i + 1), resblock_kernel_sizes[j],
-                    tuple(resblock_dilation_sizes[j]), gin_channels)
+                    tuple(resblock_dilation_sizes[j]), gin_channels, weight_norm=weight_norm)
         self.ups = nn.ModuleDict(ups)
         self.resblocks = nn.ModuleDict(rbs)
         self.conv_post = Conv1d(uic // 2 ** self.num_upsamples, 1, 7, padding=3, bias=False)
@@ -235,7 +280,7 @@ class Generator(nn.Module):
             if self._length_preserving(i):
                 up = self.ups[str(i)]
                 u, pad = self.upsample_rates[i], up.padding
-                w8, s_w = Q.quantize_transposed_kernel(up.weight.detach().permute(2, 0, 1),
+                w8, s_w = Q.quantize_transposed_kernel(up.kernel().detach().permute(2, 0, 1),
                                                        u, pad)
                 wsub, dmin, dmax = Q.transposed_subpixel_kernel(w8, u, pad)
                 qp["ups"][str(i)] = {"wsub": wsub, "dmin": dmin, "dmax": dmax, "s_w": s_w,
@@ -251,9 +296,12 @@ class Generator(nn.Module):
 
 
 class Synthesizer(nn.Module):
-    """The inference half of SynthesizerTrn: `infer_p1` (text encode +
-    durations), `infer_p2` (prior expansion, reversed flows, decode) and
-    `quantize_decoder`. Submodule names follow the JAX parameter tree, so
+    """SynthesizerTrn: `forward` (the training graph, with `spec_channels`
+    set), `infer_p1` (text encode + durations), `infer_p2` (prior expansion,
+    reversed flows, decode) and `quantize_decoder`. The constructor takes the
+    JAX package's Synthesizer fields; `spec_channels=None` leaves out the
+    posterior encoder (serving), `weight_norm=True` builds trainable g/v
+    pairs. Submodule names follow the JAX parameter tree, so
     `vits_tpu_torch.convert.params_from_jax` fills them mechanically."""
 
     def __init__(self, text_channels, inter_channels, hidden_channels, filter_channels,
@@ -261,27 +309,46 @@ class Synthesizer(nn.Module):
                  resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
                  upsample_kernel_sizes, resblock="2", ffn="FFN2", hidden_size_d=256,
                  kernel_size_d=5, act_func_d="ReLU", dilation_rate=(1, 1, 1, 1),
-                 n_flows=4, n_speakers=0, gin_channels=0):
+                 n_flows=4, n_speakers=0, gin_channels=0, spec_channels=None,
+                 segment_size=None, p_dropout=0.0, kernel_size_q=5, n_layers_q=16,
+                 p_dropout_d=0.0, weight_norm: bool = False):
         super().__init__()
+        self.inter_channels, self.segment_size = inter_channels, segment_size
+        wn = weight_norm
         self.enc_p = TextEncoder(text_channels, inter_channels, hidden_channels,
                                  filter_channels, n_heads, n_layers, kernel_size,
-                                 ffn=ffn, gin_channels=gin_channels)
+                                 ffn=ffn, gin_channels=gin_channels, p_dropout=p_dropout)
+        if spec_channels is not None:
+            self.enc_q = PosteriorEncoder(spec_channels, inter_channels, hidden_channels,
+                                          kernel_size_q, 1, n_layers_q, weight_norm=wn)
         self.dp = DurationPredictor(hidden_channels, hidden_size_d, kernel_size_d,
-                                    act_func=act_func_d, gin_channels=gin_channels)
+                                    act_func=act_func_d, gin_channels=gin_channels,
+                                    p_dropout=p_dropout_d)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5,
                                           tuple(dilation_rate), 4, n_flows=n_flows,
-                                          gin_channels=gin_channels)
+                                          gin_channels=gin_channels, weight_norm=wn)
         self.dec = Generator(inter_channels, resblock, resblock_kernel_sizes,
                              resblock_dilation_sizes, upsample_rates,
                              upsample_initial_channel, upsample_kernel_sizes,
-                             gin_channels=gin_channels)
+                             gin_channels=gin_channels, weight_norm=wn)
         self.emb_g = Embedding(n_speakers, gin_channels)
 
     @classmethod
-    def from_hps(cls, hps) -> "Synthesizer":
-        """Build from an HParams config (the JAX package's JSON schema)."""
+    def from_hps(cls, hps, train: bool = False) -> "Synthesizer":
+        """Build from an HParams config (the JAX package's JSON schema);
+        train=True builds the training model (posterior encoder, weight
+        norm, the segment size in frames)."""
         m = hps.model
+        extra = {}
+        if train:
+            extra = dict(spec_channels=hps.data.filter_length // 2 + 1,
+                         segment_size=hps.train.segment_size // hps.data.hop_length,
+                         kernel_size_q=getattr(m, "kernel_size_q", 5),
+                         n_layers_q=getattr(m, "n_layers_q", 16), weight_norm=True)
         return cls(
+            **extra,
+            p_dropout=getattr(m, "p_dropout", 0.0),
+            p_dropout_d=getattr(m, "p_dropout_d", 0.5),
             text_channels=hps.data.text_channels,
             inter_channels=m.inter_channels,
             hidden_channels=m.hidden_channels,
@@ -305,6 +372,75 @@ class Synthesizer(nn.Module):
             gin_channels=m.gin_channels,
         )
 
+    # training graph ---------------------------------------------------------
+    def draw_noise(self, batch_size: int, t_x: int, t_y: int,
+                   generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """The noise `forward` takes, drawn from `generator` on the model's
+        device: "post" the posterior eps (B, T_y, inter), "mas" the alignment
+        noise (B, T_y, T_x), "slice" the window uniforms (B,), "fwd" the z_q
+        eps (B, T_y, inter)."""
+        dev = self.emb_g.weight.device
+        c = self.inter_channels
+        return {"post": torch.randn(batch_size, t_y, c, generator=generator, device=dev),
+                "mas": torch.randn(batch_size, t_y, t_x, generator=generator, device=dev),
+                "slice": torch.rand(batch_size, generator=generator, device=dev),
+                "fwd": torch.randn(batch_size, t_y, c, generator=generator, device=dev)}
+
+    def forward(self, x, x_lengths, spec, spec_lengths, emo, sid,
+                noise: Dict[str, torch.Tensor], align_noise: float = 0.0,
+                rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Training graph (vits_tpu Synthesizer.forward, synthesizer.py:674).
+        x (B, T_x, text_channels), spec (B, T_y, spec_channels), emo
+        (B, 1024), sid (B,) int, lengths (B,) int; noise from `draw_noise`;
+        rng the dropout generator. Returns the JAX package's dict of every
+        tensor the training losses need."""
+        g = self.emb_g(sid)
+        x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
+        y_mask = sequence_mask(spec_lengths, spec.shape[1])[..., None].to(x.dtype)
+
+        x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g, rng=rng)
+        z, m_q, logs_q = self.enc_q(spec, y_mask, eps=noise["post"])
+        z_p = self.flow(z, y_mask, g=g, reverse=False)
+
+        # MAS (no grad), synthesizer.py:694-707
+        with torch.no_grad():
+            logs_p_, m_p_, z_p_ = logs_p.detach(), m_p.detach(), z_p.detach()
+            s_p_sq_r = torch.exp(-2.0 * logs_p_)
+            nc1 = torch.sum(-0.5 * math.log(2 * math.pi) - logs_p_, dim=-1)
+            nc2 = torch.einsum("byc,bxc->byx", -0.5 * torch.square(z_p_), s_p_sq_r)
+            nc3 = torch.einsum("byc,bxc->byx", z_p_, m_p_ * s_p_sq_r)
+            nc4 = torch.sum(-0.5 * torch.square(m_p_) * s_p_sq_r, dim=-1)
+            neg_cent = nc1[:, None, :] + nc2 + nc3 + nc4[:, None, :]
+            # the population std over every cell, as jnp.std
+            neg_cent = neg_cent + torch.std(neg_cent, correction=0) * noise["mas"] * align_noise
+            attn_mask = y_mask * x_mask.transpose(1, 2)
+            attn = mas.maximum_path(neg_cent, attn_mask)
+
+        # durations (synthesizer.py:709-713)
+        w = torch.sum(attn, dim=1)
+        logw_ = torch.log(w + 1e-6)[..., None] * x_mask
+        logw = self.dp(x_h, x_mask, g=g, rng=rng)
+        l_length = torch.sum(torch.abs(logw - logw_), dim=(1, 2)) / torch.sum(x_mask)
+
+        # expand the prior (synthesizer.py:716-717)
+        m_p_e = torch.einsum("byx,bxc->byc", attn, m_p)
+        logs_p_e = torch.einsum("byx,bxc->byc", attn, logs_p)
+
+        z_slice, ids_slice = rand_slice_segments(z, spec_lengths, self.segment_size,
+                                                 noise["slice"])
+        o = self.dec(z_slice, g=g)
+
+        # forward-consistency branch (synthesizer.py:723-724)
+        z_q = self.flow(m_p_e + noise["fwd"] * torch.exp(logs_p_e), y_mask, g=g, reverse=True)
+        return {
+            "y_hat": o, "l_length": l_length, "attn": attn, "ids_slice": ids_slice,
+            "x_mask": x_mask, "y_mask": y_mask,
+            "z": z, "z_p": z_p, "m_p": m_p_e, "logs_p": logs_p_e,
+            "m_q": m_q, "logs_q": logs_q, "z_q": z_q,
+            "x_hidden": x_h, "logw_": logw_.detach(), "logw": logw,
+        }
+
+    # serving ---------------------------------------------------------------
     @torch.no_grad()
     def infer_p1(self, x, emo, sid, x_mask=None) -> Tuple[torch.Tensor, ...]:
         """Phase 1: encode text and predict log-durations. x (B, T_x,

@@ -1,17 +1,25 @@
 """Layers of the port (counterpart of vits_tpu/nn/core.py).
 
-Every layer takes and returns channel-last `(B, T, C)` tensors, the JAX
-package's layout, and keeps its weights in torch's own layout:
+Every layer takes and returns channel-last tensors, the JAX package's
+layout ((B, T, C); (B, H, W, C) for Conv2d), and keeps its weights in
+torch's own layout:
 
   Dense            weight (out, in)
   Conv1d           weight (out, in // groups, k)
   ConvTranspose1d  weight (in, out, k)
+  Conv2d           weight (out, in, kh, kw)
   Embedding        weight (n, d)
   LayerNorm        gamma, beta (C,)
 
-Weight norm exists only in the parameter trees the JAX package writes; the
-port serves folded kernels (`fold_weight_norm`, applied by
-`vits_tpu_torch.convert.params_from_jax`).
+Weight norm. Built with `weight_norm=True`, a Dense/Conv1d/ConvTranspose1d/
+Conv2d holds `weight_g` (dim 0 kept, the rest 1) and `weight_v` (the
+kernel's shape) in place of `weight`, and computes its kernel
+g * v / ||v|| on every forward, the norm over every dim but 0 (torch's
+`weight_norm(dim=0)` names and axes; the JAX package's g per output channel,
+and per input channel for the transposed conv). Training builds its layers
+so; serving builds plain layers and loads folded kernels
+(`fold_weight_norm`, applied by `vits_tpu_torch.convert.params_from_jax`).
+`kernel()` returns the kernel either way.
 
 Random initialisation (`init_weights`) follows the distributions of
 vits_tpu/nn/core.py:39-80 (not their bits), so a randomly initialised model
@@ -21,7 +29,7 @@ has realistic activation scales.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,13 +106,50 @@ def fold_weight_norm(params):
 # layers
 # ---------------------------------------------------------------------------
 
-class Dense(nn.Module):
+def _wn_norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.ndim)), keepdim=True))
+
+
+class _Kernel(nn.Module):
+    """A layer's kernel: a plain `weight`, or the weight-norm pair
+    `weight_g`/`weight_v` (vits_tpu/nn/core.py:91 `wn_kernel`)."""
+
+    def _make_kernel(self, shape, weight_norm: bool):
+        self.weight_norm = weight_norm
+        if weight_norm:
+            self.weight_g = nn.Parameter(torch.empty(shape[0], *([1] * (len(shape) - 1))))
+            self.weight_v = nn.Parameter(torch.empty(*shape))
+        else:
+            self.weight = nn.Parameter(torch.empty(*shape))
+
+    def kernel(self) -> torch.Tensor:
+        if self.weight_norm:
+            return self.weight_g * self.weight_v / _wn_norm(self.weight_v)
+        return self.weight
+
+    @torch.no_grad()
+    def _set_kernel(self, w: torch.Tensor):
+        """Initialise from a kernel: weight norm starts at g = ||w||, so the
+        layer computes w (vits_tpu/nn/core.py:137 `make_weight_norm`)."""
+        if self.weight_norm:
+            self.weight_v.copy_(w)
+            self.weight_g.copy_(_wn_norm(w))
+        else:
+            self.weight.copy_(w)
+
+    def _uniform_kernel(self, bound: float, gen):
+        shape = self.weight_v.shape if self.weight_norm else self.weight.shape
+        self._set_kernel(torch.rand(shape, generator=gen) * (2 * bound) - bound)
+
+
+class Dense(_Kernel):
     """Linear layer on the last axis (vits_tpu Dense)."""
 
-    def __init__(self, in_features: int, out_features: int, init: str = "torch"):
+    def __init__(self, in_features: int, out_features: int, init: str = "torch",
+                 weight_norm: bool = False):
         super().__init__()
         self.in_features, self.out_features, self.init = in_features, out_features, init
-        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self._make_kernel((out_features, in_features), weight_norm)
         self.bias = nn.Parameter(torch.empty(out_features))
 
     def reset_parameters(self, gen=None):
@@ -112,27 +157,27 @@ class Dense(nn.Module):
             bound = _xavier_bound(self.in_features, self.out_features)
         else:
             bound = _kaiming_bound(self.in_features)
-        _uniform_(self.weight, bound, gen)
+        self._uniform_kernel(bound, gen)
         _uniform_(self.bias, _bias_bound(self.in_features), gen)
 
     def forward(self, x):
-        return F.linear(x, self.weight, self.bias)
+        return F.linear(x, self.kernel(), self.bias)
 
 
-class Conv1d(nn.Module):
-    """Stride-1 1-D convolution on (B, T, C) (vits_tpu Conv1d: padding on
-    both sides, dilation, groups). init: "torch" (kaiming uniform), "xavier",
-    or "zeros"."""
+class Conv1d(_Kernel):
+    """1-D convolution on (B, T, C) (vits_tpu Conv1d: padding on both sides,
+    stride, dilation, groups). init: "torch" (kaiming uniform), "xavier", or
+    "zeros". `conv_ncl` is the same convolution on (B, C, T)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, dilation: int = 1, groups: int = 1,
-                 bias: bool = True, init: str = "torch"):
+                 bias: bool = True, init: str = "torch", stride: int = 1,
+                 weight_norm: bool = False):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
-        self.kernel_size, self.padding = kernel_size, padding
+        self.kernel_size, self.padding, self.stride = kernel_size, padding, stride
         self.dilation, self.groups, self.init = dilation, groups, init
-        self.weight = nn.Parameter(
-            torch.empty(out_channels, in_channels // groups, kernel_size))
+        self._make_kernel((out_channels, in_channels // groups, kernel_size), weight_norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, gen=None):
@@ -140,7 +185,7 @@ class Conv1d(nn.Module):
         fan_in = (self.in_channels // self.groups) * k
         if self.init == "zeros":  # coupling-layer post conv: each flow starts at identity
             with torch.no_grad():
-                self.weight.zero_()
+                self.weight.zero_()  # a plain kernel: weight norm of zeros is 0/0
                 if self.bias is not None:
                     self.bias.zero_()
             return
@@ -148,38 +193,67 @@ class Conv1d(nn.Module):
             bound = _xavier_bound(fan_in, self.out_channels * k)
         else:
             bound = _kaiming_bound(fan_in)
-        _uniform_(self.weight, bound, gen)
+        self._uniform_kernel(bound, gen)
         if self.bias is not None:
             _uniform_(self.bias, _bias_bound(fan_in), gen)
 
+    def conv_ncl(self, x):
+        return F.conv1d(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, groups=self.groups)
+
     def forward(self, x):
-        y = F.conv1d(x.transpose(1, 2), self.weight, self.bias, padding=self.padding,
-                     dilation=self.dilation, groups=self.groups)
-        return y.transpose(1, 2)
+        return self.conv_ncl(x.transpose(1, 2)).transpose(1, 2)
 
 
-class ConvTranspose1d(nn.Module):
+class ConvTranspose1d(_Kernel):
     """torch-semantics transposed convolution on (B, T, C). The JAX package
     computes it as a subpixel (phase-packed) conv (core.py:332); this is the
     same function in its plain form. Output length (T-1)*stride - 2*padding + k."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int, padding: int = 0):
+                 stride: int, padding: int = 0, weight_norm: bool = False):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
-        self.weight = nn.Parameter(torch.empty(in_channels, out_channels, kernel_size))
+        self._make_kernel((in_channels, out_channels, kernel_size), weight_norm)
         self.bias = nn.Parameter(torch.empty(out_channels))
 
     def reset_parameters(self, gen=None):
         fan_in = self.out_channels * self.kernel_size  # torch's fan for (in, out, k)
-        _uniform_(self.weight, _kaiming_bound(fan_in), gen)
+        self._uniform_kernel(_kaiming_bound(fan_in), gen)
         _uniform_(self.bias, _bias_bound(fan_in), gen)
 
     def forward(self, x):
-        y = F.conv_transpose1d(x.transpose(1, 2), self.weight, self.bias,
+        y = F.conv_transpose1d(x.transpose(1, 2), self.kernel(), self.bias,
                                stride=self.stride, padding=self.padding)
         return y.transpose(1, 2)
+
+
+class Conv2d(_Kernel):
+    """2-D convolution (vits_tpu Conv2d): (B, H, W, C) at the public face;
+    `conv_nchw` is the same convolution on (B, C, H, W)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
+                 stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
+                 bias: bool = True, weight_norm: bool = False):
+        super().__init__()
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.kernel_size, self.stride, self.padding = (tuple(kernel_size), tuple(stride),
+                                                       tuple(padding))
+        self._make_kernel((out_channels, in_channels, *self.kernel_size), weight_norm)
+        self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
+
+    def reset_parameters(self, gen=None):
+        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
+        self._uniform_kernel(_kaiming_bound(fan_in), gen)
+        if self.bias is not None:
+            _uniform_(self.bias, _bias_bound(fan_in), gen)
+
+    def conv_nchw(self, x):
+        return F.conv2d(x, self.kernel(), self.bias, stride=self.stride, padding=self.padding)
+
+    def forward(self, x):
+        return self.conv_nchw(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
 class Embedding(nn.Module):
@@ -215,3 +289,15 @@ class LayerNorm(nn.Module):
 
 def leaky_relu(x, slope: float = 0.1):
     return F.leaky_relu(x, slope)
+
+
+def dropout(x, p: float, generator: Optional[torch.Generator] = None):
+    """Inverted dropout (vits_tpu/nn/core.py:457): keep each element with
+    probability 1 - p and scale it by 1 / (1 - p); a no-op at p = 0. The mask
+    is drawn from `generator` (on x's device; None draws from torch's global
+    generator)."""
+    if p == 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))

@@ -24,20 +24,13 @@ import torch
 
 from vits_tpu_torch.nn import quant as Q
 from vits_tpu_torch.nn.core import leaky_relu
+from vits_tpu_torch.utils import cuda_build
 
 SOURCE = "rb_chain_q8.cu"
 LRELU_SLOPE = 0.1
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 
-
-class LaunchCounter:
-    """Kernel launches made through a wrapper (reset and read by callers)."""
-
-    def __init__(self):
-        self.launches = 0
-
-
-counter = LaunchCounter()
+counter = cuda_build.LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -111,7 +104,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
-    from vits_tpu_torch.utils import cuda_build
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_vits_typed", False):
         lib.rb2_iter_q8.argtypes = [_P] * 11 + [_I] * 6 + [_P]

@@ -1,0 +1,140 @@
+"""The mel/MPD GAN training step (counterpart of vits_tpu/train/step.py,
+`variant="mel"` without the duration discriminator, in float32; the
+stft/MRD variant is not ported yet).
+
+One step, as the JAX package's: the generator forward runs once under
+autograd; the discriminator step runs first on `y_hat.detach()` (D loss,
+backward, AdamW); then the generator loss is taken against the UPDATED
+discriminator (mel L1 x c_mel, feature matching, LSGAN, duration x c_dur,
+KL x c_kl, the z_q KL x c_kl_q), backward, AdamW. The discriminator's
+parameters are frozen (`requires_grad_(False)`) while the generator loss
+runs, so its gradients from that loss are never formed and cannot leak into
+the next discriminator step. Gradients are not clipped; their global norms
+are reported (`clip_grad_value`).
+
+Torch modules hold their parameters, so the step reads the models and their
+optimizer states from `state` (`vits_tpu_torch.train.loop.init_state`) and
+updates them in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+
+from vits_tpu_torch.ops.seq import clip_grad_value, slice_segments, slice_segments_1d
+from vits_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel, spectrogram
+from vits_tpu_torch.train import losses as L
+from vits_tpu_torch.train.optim import Optimizer
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainStepConfig:
+    segment_frames: int
+    hop_length: int
+    filter_length: int
+    win_length: int
+    n_mel_channels: int
+    sampling_rate: int
+    mel_fmin: float = 0.0
+    mel_fmax: Optional[float] = None
+    c_mel: float = 45.0
+    c_dur: float = 2.0
+    c_kl: float = 1.0
+    c_kl_q: float = 0.01
+
+    @classmethod
+    def from_hps(cls, hps):
+        t, d = hps.train, hps.data
+        return cls(segment_frames=t.segment_size // d.hop_length,
+                   hop_length=d.hop_length, filter_length=d.filter_length,
+                   win_length=d.win_length, n_mel_channels=d.n_mel_channels,
+                   sampling_rate=d.sampling_rate, mel_fmin=d.mel_fmin, mel_fmax=d.mel_fmax,
+                   c_mel=t.c_mel, c_dur=t.c_dur, c_kl=t.c_kl, c_kl_q=t.c_kl_q)
+
+
+def make_train_step(cfg: TrainStepConfig):
+    """The step `(state, batch, noise, lr_g, lr_d, align_noise) -> (state,
+    metrics)`.
+
+    state: {"gen": Synthesizer (train=True), "disc": MultiPeriodDiscriminator,
+    "gen_opt", "disc_opt": their optimizer states (`Optimizer.init`), "step":
+    int, "rng": the dropout generator}. batch: {"x", "x_lengths", "spec",
+    "spec_lengths", "wav", "emo", "sid"} on the models' device, x (B, T_x,
+    C), spec (B, T_y, F) (optional: without it the spectrogram is computed
+    from the wav, which then carries filter_length extra samples), wav
+    (B, T) float. noise: `Synthesizer.draw_noise`. Dropout runs where the
+    modules are in training mode. metrics are detached tensors on the
+    device, the JAX step's keys."""
+    def train_step(state: Dict, batch: Dict[str, torch.Tensor],
+                   noise: Dict[str, torch.Tensor], lr_g: float, lr_d: float,
+                   align_noise: float):
+        synth, disc = state["gen"], state["disc"]
+        wav = batch["wav"].float()
+        if "spec" in batch:
+            spec = batch["spec"].float()
+        else:
+            frames = (wav.shape[1] - cfg.filter_length) // cfg.hop_length
+            with torch.no_grad():
+                spec = spectrogram(wav, cfg.filter_length, cfg.hop_length,
+                                   cfg.win_length)[:, :frames]
+
+        out = synth(batch["x"].float(), batch["x_lengths"], spec, batch["spec_lengths"],
+                    batch["emo"].float(), batch["sid"], noise, align_noise=align_noise,
+                    rng=state.get("rng"))
+        ids = out["ids_slice"]
+        seg = cfg.segment_frames * cfg.hop_length
+        y_slice = slice_segments_1d(wav, ids * cfg.hop_length, seg)[..., None]
+        y_hat = out["y_hat"].float()
+
+        # ---------------- D step (train.py:204-214) ----------------
+        disc.requires_grad_(True)
+        y_d_r, y_d_g, _, _ = disc(y_slice, y_hat.detach())
+        loss_disc, losses_d_r, losses_d_g = L.discriminator_loss(y_d_r, y_d_g)
+        state["disc_opt"].zero_grad(set_to_none=True)
+        loss_disc.backward()
+        grad_norm_d = clip_grad_value(disc.parameters())
+        Optimizer.update(state["disc_opt"], lr_d)
+
+        # ---------------- G step (train.py:222-242) ----------------
+        disc.requires_grad_(False)
+        loss_dur = torch.sum(out["l_length"].float()) * cfg.c_dur
+        loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
+                            out["y_mask"]) * cfg.c_kl
+        loss_kl_q = L.kl_loss(out["z_q"], out["logs_p"], out["m_q"], out["logs_q"],
+                              out["y_mask"]) * cfg.c_kl_q
+        with torch.no_grad():
+            mel_full = spec_to_mel(spec, cfg.filter_length, cfg.n_mel_channels,
+                                   cfg.sampling_rate, cfg.mel_fmin, cfg.mel_fmax)
+            y_mel = slice_segments(mel_full, ids, cfg.segment_frames)
+        y_hat_mel = mel_spectrogram(y_hat[..., 0], cfg.filter_length, cfg.n_mel_channels,
+                                    cfg.sampling_rate, cfg.hop_length, cfg.win_length,
+                                    cfg.mel_fmin, cfg.mel_fmax)
+        loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.c_mel
+        _, y_d_g, fmap_r, fmap_g = disc(y_slice, y_hat)
+        loss_fm = L.feature_loss(fmap_r, fmap_g)
+        loss_gen, gen_losses = L.generator_loss(y_d_g)
+        loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_kl_q
+        state["gen_opt"].zero_grad(set_to_none=True)
+        loss_all.backward()
+        disc.requires_grad_(True)
+        grad_norm_g = clip_grad_value(synth.parameters())
+        Optimizer.update(state["gen_opt"], lr_g)
+        state["step"] += 1
+
+        zero = torch.zeros((), device=wav.device)
+        metrics = {
+            "loss_mel": loss_mel, "loss_fm": loss_fm, "loss_gen": loss_gen,
+            "loss_dur": loss_dur, "loss_kl": loss_kl, "loss_kl_q": loss_kl_q,
+            "loss_g_total": loss_all, "losses_g": torch.stack(gen_losses),
+            "loss_disc": loss_disc, "grad_norm_d": grad_norm_d, "grad_norm_g": grad_norm_g,
+            "loss_disc_p": zero, "grad_norm_p": zero,
+            "losses_d_r": torch.stack(losses_d_r), "losses_d_g": torch.stack(losses_d_g),
+            "viz_mel_org": y_mel[0], "viz_mel_gen": y_hat_mel[0], "viz_mel_all": mel_full[0],
+            "viz_attn": out["attn"][0],
+        }
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step

@@ -25,6 +25,13 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
 
 
+class LaunchCounter:
+    """Kernel launches made through a wrapper (reset and read by callers)."""
+
+    def __init__(self):
+        self.launches = 0
+
+
 def nvcc_path() -> str:
     cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
             shutil.which("nvcc") or ""]
