@@ -10,7 +10,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   2. kernels  - hold K1, the int8 ResBlock2-chain kernel, against its plain
                 PyTorch version at the 12 base-config chain shapes (C =
                 256/128/64/32 x k = 3/7/11, dilations 1/3/5, B = 1, 256
-                frames, ragged valid length), and K2, MAS, against its plain
+                frames, ragged valid length; each with its plan's form, T
+                and launches, kernel ms - device time, from a CUDA graph
+                of 20 calls - against the bound) and at a B = 4
+                ragged case (C = 64, k = 7), and K2, MAS, against its plain
                 version, bit-exact, at (16, 400, 96) with the training
                 bench's lengths, (32, 1000, 384) (the base config's longest
                 utterance and text), (1, 1000, 1) and a t_x == t_y case;
@@ -19,9 +22,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 serve it with EmoVITS(device="cuda", quantize=True): 8
                 calibration requests (float decodes), then int8 requests
                 whose every ResBlock2 chain must go through the kernel
-                (launch counts checked), each compared with the float decode
-                of the same request; one request's float decode is also held
-                against the CPU;
+                (launch counts checked against the chains' plans), each
+                compared with the float decode of the same request; one
+                request's float decode is also held against the CPU;
   4. training - the base config's mel/MPD GAN step at full width (seeded
                 random weights with weight norm, AdamW from
                 build_optimizers), on the training bench's synthetic batch
@@ -85,6 +88,31 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one fn() call: `iters` calls captured in a CUDA graph,
+    the graph replayed and timed with CUDA events, so the host's launch cost
+    (Python, ctypes) is not in the number. fn runs once first, outside."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def phase_build():
     from vits_tpu_torch.utils import cuda_build
     sources = sorted(f for f in os.listdir(cuda_build.CSRC) if f.endswith(".cu"))
@@ -99,70 +127,107 @@ def phase_build():
     return sources
 
 
-def phase_kernels(dev):
-    """K1 against its plain version at the 12 base-config chain shapes."""
+def k1_case(dev, gen, C, k, dil, gin, lens, M):
+    """A seeded random ResBlock2 at (C, k, dil), calibrated on its own input
+    and quantized: (qp, x (B, M, C) masked past each length, gs, valid)."""
     from vits_tpu_torch.models.modules import ResBlock2
-    from vits_tpu_torch.nn import rb_chain
     from vits_tpu_torch.nn.core import init_weights
-    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    rb = init_weights(ResBlock2(C, k, tuple(dil), gin), gen).to(dev).eval()
+    B = len(lens)
+    valid = torch.tensor(lens, dtype=torch.int32, device=dev)
+    x = torch.randn(B, M, C, generator=gen).to(dev)
+    mask = (torch.arange(M, device=dev)[None, :] < valid[:, None]).float()[..., None]
+    x = x * mask
+    g = torch.randn(B, gin, generator=gen).to(dev)
+    with torch.no_grad():
+        rec = {}
+        rb(x, g, x_mask=mask, record=rec)
+        qp = rb.quantize_params(rec)
+        gs = torch.stack([rb.conds[str(i)](g) for i in range(len(dil))], 1).float()
+    return qp, x, gs, valid
 
+
+def k1_shapes():
+    """The 12 base-config chain shapes of a CHAIN_FRAMES-frame request, with
+    a ragged valid length (not a multiple of the stage's upsampling):
+    (C, k, dilations, M, valid)."""
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
     m = get_hparams_from_file(default_config_path("base")).model
-    gin = m.gin_channels
-    rows, worst = [], 0.0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
-    up = 1
-    gen = torch.Generator().manual_seed(SEED)
+    out, up = [], 1
     for s, u in enumerate(m.upsample_rates):
         up *= u
         C = m.upsample_initial_channel // 2 ** (s + 1)
         M = CHAIN_FRAMES * up
         for k, dil in zip(m.resblock_kernel_sizes, m.resblock_dilation_sizes):
-            rb = init_weights(ResBlock2(C, k, tuple(dil), gin), gen).to(dev).eval()
-            valid_n = M - 37 * up // 8 - 1  # ragged: not a multiple of the stage's upsampling
-            x = torch.randn(1, M, C, generator=gen).to(dev)
-            mask = (torch.arange(M, device=dev) < valid_n).float()[None, :, None]
-            x = x * mask
-            g = torch.randn(1, gin, generator=gen).to(dev)
-            with torch.no_grad():
-                rec = {}
-                rb(x, g, x_mask=mask, record=rec)
-                qp = rb.quantize_params(rec)
-                gs = torch.stack([rb.conds[str(i)](g) for i in range(len(dil))], 1).float()
-            valid = torch.tensor([valid_n], dtype=torch.int32, device=dev)
-            out = rb_chain.chain_q8_cuda(qp, x, gs, valid)
-            ref = rb_chain.chain_q8_plain(qp, x, gs, valid)
-            torch.cuda.synchronize()
-            if not torch.isfinite(out).all():
-                raise RuntimeError(f"K1 C={C} k={k}: non-finite output")
-            diff = (out - ref).abs()
-            scale = max(1.0, float(ref.abs().max()))
-            err = float(diff.max())
-            off = float((diff > 1e-3 * float(ref.abs().max())).float().mean())
-            ok = err <= 0.05 * scale and off < 0.01
-            ms = cuda_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid), iters=20)
-            plain_ms = cuda_ms(lambda: rb_chain.chain_q8_plain(qp, x, gs, valid), iters=3, warmup=1)
-            ops, nbytes = rb_chain.chain_ops_bytes(1, M, C, k, len(dil))
-            bound = max(ops / INT8_PEAK, nbytes / HBM_BW) * 1e3
-            log(f"[kernels] rb2_chain_q8 C={C:3d} k={k:2d} M={M:5d} valid={valid_n}: "
-                f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound:.4f} ms "
-                f"({'ops' if ops / INT8_PEAK > nbytes / HBM_BW else 'bytes'})  "
-                f"max_abs_err {err:.3e} (tol {0.05 * scale:.3e})  "
-                f"off>1e-3*max {100 * off:.3f}%  {'OK' if ok else 'FAIL'}")
-            rows.append(dict(C=C, k=k, M=M, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                             max_abs_err=err, frac_off=off, ok=ok))
-            worst = max(worst, err)
-            tot["ms"] += ms
-            tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += bound
-            tot["ops_s"] += ops / INT8_PEAK
-            tot["bytes_s"] += nbytes / HBM_BW
-            del rb, x, qp, out, ref
+            out.append((C, k, tuple(dil), M, M - 37 * up // 8 - 1))
+    return out, m.gin_channels
+
+
+def phase_kernels(dev):
+    """K1 against its plain version at the 12 base-config chain shapes, and
+    at one B = 4 ragged case (C = 64, k = 7) that runs the batch dimension of
+    the whole-chain tiling."""
+    from vits_tpu_torch.nn import rb_chain
+
+    shapes, gin = k1_shapes()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows, worst = [], 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
+    gen = torch.Generator().manual_seed(SEED)
+    M4 = CHAIN_FRAMES * 48
+    cases = [(C, k, dil, M, [v]) for C, k, dil, M, v in shapes] + \
+        [(64, 7, (1, 3, 5), M4, [M4 - 1, M4 - 3001, M4 // 2 + 17, 901])]
+    for n_case, (C, k, dil, M, lens) in enumerate(cases):
+        B = len(lens)
+        qp, x, gs, valid = k1_case(dev, gen, C, k, dil, gin, lens, M)
+        out = rb_chain.chain_q8_cuda(qp, x, gs, valid)
+        ref = rb_chain.chain_q8_plain(qp, x, gs, valid)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"K1 B={B} C={C} k={k}: non-finite output")
+        diff = (out - ref).abs()
+        scale = max(1.0, float(ref.abs().max()))
+        err = float(diff.max())
+        off = float((diff > 1e-3 * float(ref.abs().max())).float().mean())
+        ok = err <= 0.05 * scale and off < 0.01
+        worst = max(worst, err)
+        p = rb_chain.plan(B, M, C, k, dil, n_sm)
+        check = (f"max_abs_err {err:.3e} (tol {0.05 * scale:.3e})  off>1e-3*max "
+                 f"{100 * off:.3f}%  {'OK' if ok else 'FAIL'}")
+        if n_case >= len(shapes):  # the batch case: checked, not part of a request
+            log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:5d} valid={lens}: "
+                f"{p.form} T={p.T} launches {p.launches}: {check}")
+            rows.append(dict(B=B, C=C, k=k, M=M, ok=ok, batch_case=True))
+            continue
+        ms = graph_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid))
+        call_ms = cuda_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid), iters=20)
+        plain_ms = cuda_ms(lambda: rb_chain.chain_q8_plain(qp, x, gs, valid), iters=3, warmup=1)
+        ops, nbytes = rb_chain.chain_ops_bytes(B, M, C, k, len(dil))
+        bound = max(ops / INT8_PEAK, nbytes / HBM_BW) * 1e3
+        by = "ops" if ops / INT8_PEAK > nbytes / HBM_BW else "bytes"
+        log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:5d} valid={lens[0]}: "
+            f"{p.form} T={p.T} launches {p.launches}: kernel {ms:.4f} ms (per eager call "
+            f"{call_ms:.4f} ms)  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of it)  "
+            f"{check}")
+        rows.append(dict(C=C, k=k, M=M, form=p.form, T=p.T, launches=p.launches, ms=ms,
+                         call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                         max_abs_err=err, frac_off=off, ok=ok))
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += bound
+        tot["ops_s"] += ops / INT8_PEAK
+        tot["bytes_s"] += nbytes / HBM_BW
+        del x, qp, out, ref
     bad = [r for r in rows if not r["ok"]]
+    rows = [r for r in rows if not r.get("batch_case")]
     if bad:
         raise RuntimeError(f"K1 disagrees with its plain version at {len(bad)} shape(s): {bad}")
-    log(f"[kernels] rb2_chain_q8: all {len(rows)} shapes agree; the 12 chains of a "
-        f"{CHAIN_FRAMES}-frame request: kernel {tot['ms']:.4f} ms, plain "
-        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms")
+    log(f"[kernels] rb2_chain_q8: all {len(rows)} shapes and the B = 4 case agree; the "
+        f"12 chains of a {CHAIN_FRAMES}-frame request: kernel {tot['ms']:.4f} ms, plain "
+        f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), "
+        f"{sum(r['launches'] for r in rows)} launches")
     return rows, worst, tot
 
 
@@ -372,6 +437,21 @@ def _requests(model, n, rng, dev):
     return out
 
 
+def k1_launches_per_decode(m, frames: int, dev) -> int:
+    """K1 launches one int8 decode of `frames` frames makes: the sum of the
+    plans of the decoder's chains (a plan's launches depend on C, k and the
+    dilations, not on the frame count)."""
+    from vits_tpu_torch.nn import rb_chain
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    total, up = 0, 1
+    for s, u in enumerate(m.upsample_rates):
+        up *= u
+        C = m.upsample_initial_channel // 2 ** (s + 1)
+        for k, dil in zip(m.resblock_kernel_sizes, m.resblock_dilation_sizes):
+            total += rb_chain.plan(1, frames * up, C, k, tuple(dil), n_sm).launches
+    return total
+
+
 def phase_serving(dev):
     from vits_tpu_torch.config import default_config_path
     from vits_tpu_torch.infer import EmoVITS
@@ -392,8 +472,6 @@ def phase_serving(dev):
                            f"VITS_TPU_Q8_CALIB_REQUESTS gives {model.q8_calib_requests}")
     reqs = _requests(model, N_CALIB + N_INT8, rng, dev)
     hop, sr = model.hop_size, model.sampling_rate
-    n_chain = len(model.synth.dec.resblocks)
-    per_chain = len(model.hps.model.resblock_dilation_sizes[0])
     lat = {"calib": [], "int8": []}
     audio_s = {"calib": 0.0, "int8": 0.0}
     rb_chain.counter.launches = 0           # main path starts here
@@ -430,14 +508,14 @@ def phase_serving(dev):
     for (i, kind, frames, launched, ms, secs, wav_q), (spk, text, emo, rate) in \
             zip(per_request, reqs):
         corr = float("nan")
-        want = n_chain * per_chain
+        want = k1_launches_per_decode(model.hps.model, frames, dev)
         if kind == "freeze" and launched != 2 * want:
             raise RuntimeError(f"request {i}: K1 launched {launched} times, expected "
                                f"{2 * want} (the gate's int8 decode and the request's)")
         if kind == "int8":
             if launched != want:
                 raise RuntimeError(f"request {i}: K1 launched {launched} times, expected "
-                                   f"{want} ({n_chain} chains x {per_chain} dilations)")
+                                   f"{want} (the plans of the decoder's chains)")
             model.dec_q8 = None
             model.quantize = False
             np.random.seed(SEED + i)

@@ -8,9 +8,9 @@ chip_smoke.py serves, warms EmoVITS(quantize=True) up through its
 calibration requests, then traces one float and one int8 request of about
 `--frames` frames with torch.profiler. Prints, per request: host latency,
 device busy time (the union of kernel intervals), the device's idle share of
-the latency, and the device time by kernel group (the int8 chain kernel,
-cuBLAS/cuBLASLt GEMMs, cuDNN convolutions, everything else), then the top
-kernels by device time. With --out, writes the chrome traces there. Needs
+the latency, and the device time and launches by kernel group (the int8
+chain kernel K1, cuBLAS/cuBLASLt GEMMs, cuDNN convolutions, everything
+else), then the top kernels by device time. With --out, writes the chrome traces there. Needs
 a CUDA device.
 """
 
@@ -32,7 +32,7 @@ sys.path.insert(0, ROOT)
 # name fragments, matched in this order (a cuDNN conv kernel's name may say
 # "gemm" too, and an int8 GEMM's "xmma"); the top kernel names are printed
 # beside the groups so the grouping can be read off
-GROUPS = (("rb2_chain_q8 (K1)", ("rb2_iter_q8",)),
+GROUPS = (("rb2_chain_q8 (K1)", ("rb2_chain_kernel", "rb2_split_kernel")),
           ("cuDNN conv", ("fprop", "conv", "cudnn", "winograd", "implicit")),
           ("int8 GEMM (_int_mm)", ("i16832gemm", "gemm_s8", "imma", "int8", "s8s8")),
           ("float GEMM", ("gemm", "cutlass", "xmma")))
@@ -74,10 +74,11 @@ def profile_request(model, req, seed, label, out_dir):
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
     busy_ms = _busy_us(kernels) / 1e3
-    by_group, by_name = {}, {}
+    by_group, by_name, n_group = {}, {}, {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
         by_group[_group(e.name)] = by_group.get(_group(e.name), 0.0) + d
+        n_group[_group(e.name)] = n_group.get(_group(e.name), 0) + 1
         by_name[e.name] = by_name.get(e.name, 0.0) + d
     total = sum(by_group.values())
     frames = len(wav) // model.hop_size
@@ -85,13 +86,15 @@ def profile_request(model, req, seed, label, out_dir):
           f"{busy_ms:.2f} ms, device idle share {1 - busy_ms / ms:.3f}, "
           f"{len(kernels)} kernel launches")
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
-        print(f"[profile] {label}:   {g:42s} {us / 1e3:8.3f} ms  {100 * us / total:5.1f}%")
+        print(f"[profile] {label}:   {g:42s} {us / 1e3:8.3f} ms  {100 * us / total:5.1f}%  "
+              f"{n_group[g]:4d} launches")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] {label}:   top  {us / 1e3:8.3f} ms  {n[:100]}")
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{label}.json"))
     return {"frames": frames, "latency_ms": ms, "busy_ms": busy_ms,
-            "groups_ms": {g: us / 1e3 for g, us in by_group.items()}}
+            "launches": len(kernels), "groups_ms": {g: us / 1e3 for g, us in by_group.items()},
+            "groups_launches": n_group}
 
 
 def main() -> int:

@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: the int8 ResBlock2 chain against its
-plain PyTorch version at small shapes (tolerance of chip_smoke.py: atol
+plain PyTorch version at small shapes, through both of its forms, with the
+launches its plan gives (tolerance of chip_smoke.py: atol
 0.05 * max(1, max|plain|), under 1% of elements off by more than
 1e-3 * max|plain|), and MAS against its plain version, array-equal (the
 same f32 adds and maxes). Marked `cuda`; skips where no CUDA device is present.
@@ -25,13 +26,18 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("C,k,dil,B,M", [(32, 3, (1, 3, 5), 2, 300), (64, 7, (1, 3), 1, 129),
-                                         (128, 11, (1, 3, 5), 3, 77)])
-def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M):
-    gen = torch.Generator().manual_seed(C + k)
+@pytest.mark.parametrize("C,k,dil,B,M,form", [(32, 3, (1, 3, 5), 2, 300, "chain"),
+                                              (64, 7, (1, 3), 1, 129, "chain"),
+                                              (64, 7, (1, 3, 5), 4, 1000, "chain"),
+                                              (128, 11, (1, 3, 5), 3, 77, "split")])
+def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M, form):
+    gen = torch.Generator().manual_seed(C + k + B)
     rb = init_weights(ResBlock2(C, k, dil, 16), gen).to(cuda).eval()
     x = torch.randn(B, M, C, generator=gen).to(cuda)
-    lens = torch.tensor([M - 5 * i for i in range(B)], dtype=torch.int32, device=cuda)
+    # ragged: the first length runs past M (the kernel clamps it), B = 4 cuts
+    # tiles and halos at odd places
+    lens = torch.tensor([M + 7 - 12 * i if B < 4 else M - 293 * i - 7 * (i % 2)
+                         for i in range(B)], dtype=torch.int32, device=cuda)
     mask = (torch.arange(M, device=cuda)[None] < lens[:, None]).float()[..., None]
     x = x * mask
     g = torch.randn(B, 16, generator=gen).to(cuda)
@@ -40,9 +46,12 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M):
         rb(x, g, x_mask=mask, record=rec)
         qp = rb.quantize_params(rec)
         gs = torch.stack([rb.conds[str(i)](g) for i in range(len(dil))], 1).float()
+    plan = rb_chain.plan(B, M, C, k, dil, torch.cuda.get_device_properties(cuda)
+                         .multi_processor_count)
+    assert plan.form == form
     before = rb_chain.counter.launches
     out = rb_chain.resblock2_chain_q8(qp, x, gs, lens)
-    assert rb_chain.counter.launches - before == len(dil)
+    assert rb_chain.counter.launches - before == plan.launches
     ref = rb_chain.chain_q8_plain(qp, x, gs, lens)
     torch.cuda.synchronize()
     diff = (out - ref).abs()
