@@ -16,8 +16,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 ragged case (C = 64, k = 7), and K2, MAS, against its plain
                 version, bit-exact, at (16, 400, 96) with the training
                 bench's lengths, (32, 1000, 384) (the base config's longest
-                utterance and text), (1, 1000, 1) and a t_x == t_y case;
-                print kernel ms, plain ms, bound ms and errors;
+                utterance and text), (1, 1000, 1), a t_x == t_y case and
+                (2, 2000, 384), all in the warp form, and (2, 1200, 1100)
+                in the block form; print each case's form, kernel ms
+                (device time, from a CUDA graph of 20 calls), plain ms,
+                bound ms and errors;
   3. serving  - write a seeded random base-config checkpoint at full width,
                 serve it with EmoVITS(device="cuda", quantize=True): 8
                 calibration requests (float decodes), then int8 requests
@@ -240,33 +243,44 @@ def _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs):
     return neg.to(dev), t_ys.to(dev), t_xs.to(dev)
 
 
-def phase_mas(dev):
-    """K2 against its plain version, bit-exact, at the listed shapes."""
-    from vits_tpu_torch.ops import mas
-    gen = torch.Generator().manual_seed(SEED)
-    cases = [
+def mas_cases():
+    """K2's shapes: (name, B, T_y, T_x, t_ys, t_xs). The first is the training
+    step's; the last runs the block form (T_x > 1024)."""
+    return [
         ("train bench", 16, 400, 96, [400 - 13 * (i % 4) for i in range(16)],
          [96 - i % 7 for i in range(16)]),
         ("longest", 32, 1000, 384, [1000] * 32, [384] * 32),
         ("one token", 1, 1000, 1, [1000], [1]),
         ("t_x == t_y", 4, 200, 200, [200, 150, 77, 1], [200, 150, 77, 1]),
+        ("long utterance", 2, 2000, 384, [2000, 1873], [384, 301]),
+        ("wide text", 2, 1200, 1100, [1200, 1187], [1100, 1093]),
     ]
+
+
+def phase_mas(dev):
+    """K2 against its plain version, bit-exact, at the listed shapes, each
+    in the form its plan picks."""
+    from vits_tpu_torch.ops import mas
+    gen = torch.Generator().manual_seed(SEED)
     rows = []
-    for name, B, T_y, T_x, t_ys, t_xs in cases:
+    for name, B, T_y, T_x, t_ys, t_xs in mas_cases():
         neg, ty, tx = _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs)
+        p = mas.plan(B, T_y, T_x)
         out = mas.maximum_path_cuda(neg, ty, tx)
         ref = mas.maximum_path_plain(neg, ty, tx)
         torch.cuda.synchronize()
         equal = torch.equal(out, ref) and torch.equal(out.sum(dim=(1, 2)), ty.float())
         err = float((out - ref).abs().max())
-        ms = cuda_ms(lambda: mas.maximum_path_cuda(neg, ty, tx), iters=20)
+        ms = graph_ms(lambda: mas.maximum_path_cuda(neg, ty, tx))
+        call_ms = cuda_ms(lambda: mas.maximum_path_cuda(neg, ty, tx), iters=20)
         plain_ms = cuda_ms(lambda: mas.maximum_path_plain(neg, ty, tx), iters=1, warmup=1)
         bound = mas.mas_bytes(ty, tx, T_y, T_x) / HBM_BW * 1e3
-        log(f"[kernels] mas ({B}, {T_y}, {T_x}) {name}: kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  bound {bound:.3e} ms (bytes)  max_abs_err {err:.1e} "
-            f"(bit-exact required)  {'OK' if equal else 'FAIL'}")
-        rows.append(dict(name=name, shape=(B, T_y, T_x), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound, max_abs_err=err, ok=equal))
+        log(f"[kernels] mas ({B}, {T_y}, {T_x}) {name}: form {p.form} R={p.R} D={p.D} "
+            f"smem {p.smem}: kernel {ms:.4f} ms (per eager call {call_ms:.4f} ms)  plain "
+            f"{plain_ms:.4f} ms  bound {bound:.3e} ms (bytes; {100 * bound / ms:.1f}% of it)  "
+            f"max_abs_err {err:.1e} (bit-exact required)  {'OK' if equal else 'FAIL'}")
+        rows.append(dict(name=name, shape=(B, T_y, T_x), form=p.form, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound_ms=bound, max_abs_err=err, ok=equal))
         del neg, out, ref
     bad = [r for r in rows if not r["ok"]]
     if bad:

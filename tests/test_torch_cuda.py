@@ -3,8 +3,8 @@ plain PyTorch version at small shapes, through both of its forms, with the
 launches its plan gives (tolerance of chip_smoke.py: atol
 0.05 * max(1, max|plain|), under 1% of elements off by more than
 1e-3 * max|plain|), and MAS against its plain version, array-equal (the
-same f32 adds and maxes). Marked `cuda`; skips where no CUDA device is present.
-Run on the GPU machine with
+same f32 adds and maxes), in the form its plan picks. Marked `cuda`; skips
+where no CUDA device is present. Run on the GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (tests/conftest.py
 imports jax, which that machine need not have)."""
 
@@ -60,15 +60,21 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M, form):
     assert float((diff > 1e-3 * peak).float().mean()) < 0.01
 
 
-@pytest.mark.parametrize("B,T_y,T_x,case", [(16, 400, 96, "bench"), (3, 37, 37, "diagonal"),
-                                            (2, 1000, 1, "one_token"),
-                                            (2, 1200, 1100, "two_columns_per_thread"),
-                                            (2, 4000, 512, "bits_in_global_scratch")])
-def test_mas_kernel_equals_plain(cuda, B, T_y, T_x, case):
+@pytest.mark.parametrize("B,T_y,T_x,case,form", [
+    (16, 400, 96, "bench", "warp"), (3, 37, 37, "diagonal", "warp"),
+    (2, 1000, 1, "one_token", "warp"), (2, 2000, 384, "long_utterance", "warp"),
+    (4, 70, 45, "zero_length", "warp"),
+    (2, 1200, 1100, "two_columns_per_thread", "block"),
+    (2, 4000, 512, "bits_in_global_scratch", "block")])
+def test_mas_kernel_equals_plain(cuda, B, T_y, T_x, case, form):
+    assert mas.plan(B, T_y, T_x).form == form
     gen = torch.Generator().manual_seed(T_y + T_x)
     neg = (torch.randn(B, T_y, T_x, generator=gen) * 10).to(cuda)
     if case == "diagonal":
         t_ys = t_xs = torch.tensor([37, 20, 1], dtype=torch.int32)
+    elif case == "zero_length":  # an empty utterance, and t_x = 0 with frames left
+        t_ys = torch.tensor([0, 70, 33, 12], dtype=torch.int32)
+        t_xs = torch.tensor([0, 45, 0, 12], dtype=torch.int32)
     else:
         t_ys = torch.tensor([T_y - 13 * (i % 4) for i in range(B)], dtype=torch.int32)
         t_xs = torch.tensor([max(T_x - i % 7, 1) for i in range(B)], dtype=torch.int32)

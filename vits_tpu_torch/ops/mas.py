@@ -11,13 +11,17 @@ x == y or v[y-1, x] < v[y-1, x-1] (strict).
 the mask, `neg_cent * mask`, an f32 DP, the path in the input dtype. On a
 CPU tensor it runs `maximum_path_plain` (a torch twin of
 `maximum_path_scan`, mas.py:74-123); on a CUDA tensor it launches the
-hand-written kernel in `vits_tpu_torch/csrc/mas.cu`, once per call, or
+hand-written kernel in `vits_tpu_torch/csrc/mas.cu`, once per call, in the
+form `plan` picks ("warp": one warp runs the DP with its row in registers;
+"block": a block's threads over the columns, one barrier per row), or
 raises. `counter.launches` counts those launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Tuple
 
 import torch
@@ -82,16 +86,88 @@ def maximum_path_plain(neg_cent: torch.Tensor, t_ys: torch.Tensor,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+SMEM_LIMIT = 232448                     # dynamic shared memory a block may use on sm_90
+WARP_MAX_TX = 1024                      # form "warp": the widest T_x it takes
+WARP_RINGS = (256, 128, 64, 32, 16, 8)  # ... rows of neg in its ring, the deepest that fits
+WARP_PARTS = 4                          # ... in parts, each copied and released as one
+BLOCK_MAX_THREADS = 1024                # form "block"
+FORMS = {"warp": 0, "block": 1}         # the C entry's form numbers
+
+
+def _align(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How `maximum_path_cuda` runs one shape (the C entry checks it).
+
+    form: "warp" (one block of 4 warps per utterance, warp 0 runs the DP
+    with R = ceil(T_x / 32), made odd, columns per lane while warps 1-3 copy
+    neg into a ring of D rows, in WARP_PARTS parts of D / WARP_PARTS rows,
+    and zero-fill the path) or "block" (one block per utterance, its threads
+    over the columns, R per thread, one barrier per row; D = 0). smem:
+    dynamic shared memory per block. scratch_words: 32-bit words of global
+    scratch per utterance ("block" only, where its bits do not fit in
+    shared memory)."""
+    form: str
+    R: int
+    D: int
+    smem: int
+    scratch_words: int = 0
+
+
+def warp_smem(T_y: int, T_x: int, R: int, D: int) -> int:
+    """Form "warp": the ring (D rows of T_x floats rounded up to 4, and 32 R
+    floats that the last row's padded columns read) and the move-left words
+    (T_y rows of R)."""
+    return 4 * (D * _align(T_x, 4) + 32 * R + T_y * R)
+
+
+def block_plan(T_y: int, T_x: int) -> Plan:
+    """Form "block", as `geometry` in csrc/mas.cu: columns per thread (a power
+    of two) so that at most 1024 threads cover T_x, the previous row
+    double-buffered in shared memory, and the path's column per row and the
+    move-left words beside it where they fit, else in global scratch."""
+    xpt = 1
+    while xpt <= 32 and _align(-(-T_x // xpt), 32) > BLOCK_MAX_THREADS:
+        xpt *= 2
+    threads = _align(-(-T_x // xpt), 32)
+    rows = 2 * xpt * threads * 4
+    if xpt > 32 or rows > SMEM_LIMIT:
+        raise ValueError(f"maximum_path: no kernel form takes T_x = {T_x}")
+    words = -(-T_x // 32)
+    full = rows + 4 * T_y + 4 * T_y * words
+    if full <= SMEM_LIMIT:
+        return Plan("block", xpt, 0, full)
+    return Plan("block", xpt, 0, rows, T_y * words + T_y)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, T_y: int, T_x: int) -> Plan:
+    """The kernel's plan for neg_cent (B, T_y, T_x): "warp" where T_x <= 1024
+    and a ring of at least 8 rows fits beside the bits (the deepest ring of
+    WARP_RINGS that fits), else "block". Raises where neither form takes the
+    shape."""
+    if B <= 0 or T_y <= 0 or T_x <= 0:
+        raise ValueError(f"maximum_path: no kernel form takes shape {(B, T_y, T_x)}")
+    if T_x <= WARP_MAX_TX:
+        R = -(-T_x // 32) | 1  # odd: lane l's reads of ring[l R + r] hit 32 banks
+        for D in WARP_RINGS:
+            smem = warp_smem(T_y, T_x, R, D)
+            if smem <= SMEM_LIMIT:
+                return Plan("warp", R, D, smem)
+    return block_plan(T_y, T_x)
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_vits_typed", False):
-        lib.mas_forward.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+        lib.mas_forward.argtypes = [_P] * 5 + [_I] * 7 + [_P]
         lib.mas_forward.restype = _I
-        lib.mas_scratch_words.argtypes = [_I, _I]
-        lib.mas_scratch_words.restype = ctypes.c_int64
         lib.mas_error_string.argtypes = [_I]
         lib.mas_error_string.restype = ctypes.c_char_p
         lib._vits_typed = True
@@ -100,9 +176,9 @@ def _lib() -> ctypes.CDLL:
 
 def maximum_path_cuda(neg_cent: torch.Tensor, t_ys: torch.Tensor,
                       t_xs: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on the current stream: neg_cent (B, T_y,
-    T_x) float32, t_ys/t_xs (B,) int32, all contiguous on one CUDA device.
-    Returns the f32 path."""
+    """One launch of the kernel on the current stream, in the form `plan`
+    picks: neg_cent (B, T_y, T_x) float32, t_ys/t_xs (B,) int32, all
+    contiguous on one CUDA device. Returns the f32 path."""
     B, T_y, T_x = neg_cent.shape
     dev = neg_cent.device
     for name, t, dtype, shape in (("neg_cent", neg_cent, torch.float32, (B, T_y, T_x)),
@@ -116,15 +192,14 @@ def maximum_path_cuda(neg_cent: torch.Tensor, t_ys: torch.Tensor,
     path = torch.empty(B, T_y, T_x, dtype=torch.float32, device=dev)
     if path.numel() == 0:
         return path
+    p = plan(B, T_y, T_x)
     lib = _lib()
-    words = lib.mas_scratch_words(T_y, T_x)
-    if words < 0:
-        raise ValueError(f"maximum_path: the kernel takes T_x <= 29056; got {T_x}")
+    words = p.scratch_words
     scratch = torch.empty(B * words, dtype=torch.int32, device=dev) if words else None
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
     err = lib.mas_forward(neg_cent.data_ptr(), t_ys.data_ptr(), t_xs.data_ptr(),
                           path.data_ptr(), scratch.data_ptr() if words else None,
-                          B, T_y, T_x, stream)
+                          B, T_y, T_x, FORMS[p.form], p.R, p.D, p.smem, stream)
     if err != 0:
         raise RuntimeError(f"mas_forward launch failed: {lib.mas_error_string(err).decode()}")
     counter.launches += 1
