@@ -63,7 +63,8 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M, form):
 @pytest.mark.parametrize("B,T_y,T_x,case,form", [
     (16, 400, 96, "bench", "warp"), (3, 37, 37, "diagonal", "warp"),
     (2, 1000, 1, "one_token", "warp"), (2, 2000, 384, "long_utterance", "warp"),
-    (4, 70, 45, "zero_length", "warp"),
+    (4, 70, 45, "zero_length", "warp"), (2, 200, 992, "widest_warp", "warp"),
+    (2, 200, 1000, "past_the_warp_form", "block"),
     (2, 1200, 1100, "two_columns_per_thread", "block"),
     (2, 4000, 512, "bits_in_global_scratch", "block")])
 def test_mas_kernel_equals_plain(cuda, B, T_y, T_x, case, form):
@@ -86,3 +87,19 @@ def test_mas_kernel_equals_plain(cuda, B, T_y, T_x, case, form):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(got.sum(dim=(1, 2)), t_ys.float())
+
+
+@pytest.mark.parametrize("T_y,T_x", [(T_x + 64, T_x) for T_x in (1, 33, 97, 161, 289, 545, 801,
+                                                                 961, 992, 993, 1024, 1025,
+                                                                 2048)]
+                         + [(T_y, 384) for T_y in (3000, 3800, 4100, 4300)])
+def test_mas_plan_agrees_with_the_kernel(cuda, T_y, T_x):
+    """mas_forward refuses plan numbers that differ from its own copy of the
+    rules, so every R, ring depth and form edge of ops/mas.py::plan launches
+    here and gives the plain version's path."""
+    gen = torch.Generator().manual_seed(T_y * T_x)
+    neg = (torch.randn(1, T_y, T_x, generator=gen) * 10).to(cuda)
+    t_ys = torch.tensor([T_y - 3], dtype=torch.int32, device=cuda)
+    t_xs = torch.tensor([max(T_x - 2, 1)], dtype=torch.int32, device=cuda)
+    got = mas.maximum_path_cuda(neg, t_ys, t_xs)
+    assert torch.equal(got, mas.maximum_path_plain(neg, t_ys, t_xs))

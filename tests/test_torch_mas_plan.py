@@ -3,13 +3,15 @@ emulation of its "warp" form on the CPU.
 
 `plan` picks the form the CUDA kernel runs at each shape; the emulation
 repeats the warp form's data layout step by step: lane l holds the columns
-l * R + r (R = ceil(T_x / 32) made odd), the left neighbour of its first
-column comes from lane l - 1, each row's move-left bits go into R words
-with column l * R + r at bit l of word r, and the backtrace walks 32 rows
+l * R + r (R = `warp_r(T_x)`), the left neighbour of its first column comes
+from lane l - 1, each row's move-left bits go into R words with column
+l * R + r at bit l of word r, of which lane r stores word r (the words no
+lane stores keep what shared memory held), and the backtrace walks 32 rows
 at a time: lane k reads column i0 - k's bit in each row of the window, a
-ballot per row gathers them, and the walk runs over those 32 words. It must be array-equal to `maximum_path_plain`
-and to the JAX package's `maximum_path_ref` (the same f32 adds and maxes,
-so the 0/1 path has no tolerance)."""
+ballot per row gathers them, and the walk runs over those 32 words. It
+must be array-equal to `maximum_path_plain` and to the JAX package's
+`maximum_path_ref` (the same f32 adds and maxes, so the 0/1 path has no
+tolerance)."""
 
 import numpy as np
 import pytest
@@ -28,7 +30,10 @@ NEG = -1e9
     (1, 1000, 1, "warp"),
     (4, 200, 200, "warp"),
     (2, 2000, 384, "warp"),
-    (2, 1200, 1100, "block"),   # T_x > 1024
+    (2, 200, 992, "warp"),      # the widest the warp form takes: 32 lanes x 31
+    (2, 200, 1000, "block"),    # T_x > 992
+    (2, 200, 1024, "block"),
+    (2, 1200, 1100, "block"),
     (2, 4000, 512, "block"),    # the bits alone pass shared memory
 ])
 def test_plan_forms(B, T_y, T_x, form):
@@ -36,7 +41,7 @@ def test_plan_forms(B, T_y, T_x, form):
     assert p.form == form
     assert p.smem <= mas.SMEM_LIMIT
     if form == "warp":
-        assert p.R in (-(-T_x // 32), -(-T_x // 32) + 1) and p.R % 2 == 1
+        assert p.R in mas.WARP_RS and 32 * p.R >= T_x and p.R % 2 == 1 and p.R <= 31
         assert p.D in mas.WARP_RINGS and p.D % mas.WARP_PARTS == 0 and p.scratch_words == 0
         assert p.smem == 4 * (p.D * -(-T_x // 4) * 4 + 32 * p.R + T_y * p.R)
     else:
@@ -53,6 +58,20 @@ def test_plan_ring_shrinks_before_the_form_changes():
     rings = [mas.plan(1, T_y, 384) for T_y in (1000, 3000, 3800, 4100, 4300)]
     assert [p.D for p in rings] == [64, 32, 16, 8, 0]
     assert [p.form for p in rings] == ["warp"] * 4 + ["block"]
+
+
+@pytest.mark.parametrize("T_x", [1, 32, 33, 96, 97, 160, 161, 288, 289, 384, 385, 544, 545,
+                                 800, 801, 960, 961, 992])
+def test_warp_r_is_the_first_odd_width_that_covers(T_x):
+    """R columns per lane cover T_x over 32 lanes, R is odd (lane l's ring
+    reads on 32 banks) and at most 31 (lane r stores word r), and no
+    smaller R of WARP_RS would do."""
+    R = mas.warp_r(T_x)
+    assert R in mas.WARP_RS and R % 2 == 1 and R <= 31 and 32 * R >= T_x
+    smaller = [r for r in mas.WARP_RS if r < R]
+    assert not smaller or 32 * smaller[-1] < T_x
+    p = mas.plan(1, 100, T_x)
+    assert (p.form, p.R) == ("warp", R) and p.smem == mas.warp_smem(100, T_x, R, p.D)
 
 
 @pytest.mark.parametrize("shape", [(1, 10, 40000), (0, 10, 10), (2, 0, 5), (2, 5, 0)])
@@ -73,14 +92,18 @@ def warp_form(neg: torch.Tensor, t_ys: torch.Tensor, t_xs: torch.Tensor) -> torc
     t_y = t_ys.long().clamp(0, T_y)[:, None, None]
     t_x = t_xs.long().clamp(0, T_x)[:, None, None]
     v = torch.full((B, 32, R), NEG)
-    words = torch.zeros(B, T_y, R, dtype=torch.int64)          # word r, bit l: column l R + r
+    # word r, bit l: column l R + r; shared memory starts with arbitrary bits,
+    # and a row's word r lands only where lane r keeps it
+    words = torch.randint(0, 2 ** 32, (B, T_y, R), generator=torch.Generator().manual_seed(R))
+    stored = torch.arange(R) < 32
     for y in range(T_y):
         up = torch.cat([torch.full((B, 1), 0.0 if y == 0 else NEG), v[:, :-1, R - 1]], 1)
         left = torch.cat([up[..., None], v[..., :-1]], -1)      # shfl_up of the last column
         feas = (x <= y) & (x >= t_x - t_y + y) & (x < t_x) & (y < t_y)
         nv = torch.where(feas, neg_l[:, y] + torch.maximum(v, left), torch.full_like(v, NEG))
         move = (x == y) | (v < left)          # column 0's bit is never read
-        words[:, y] = (move.long() << lanes[None, :, None]).sum(1)   # R ballots
+        ballots = (move.long() << lanes[None, :, None]).sum(1)      # R ballots
+        words[:, y] = torch.where(stored, ballots, words[:, y])
         v = nv
     path = torch.zeros(B, T_y, T_x)
     for b in range(B):
@@ -115,6 +138,8 @@ CASES = {
     "one_token": (2, 50, 1, [50, 7], [1, 1]),                  # t_x = 1
     "one_frame": (2, 1, 8, [1, 1], [1, 1]),                   # t_y = 1
     "wide": (2, 40, 100, [40, 36], [33, 36]),                 # a row over 4 lanes' words
+    "rounded_up": (2, 40, 300, [40, 33], [40, 31]),           # R 13 for 10 columns a lane
+    "widest": (1, 33, 992, [33], [20]),                       # R 31, the last lane full
 }
 
 

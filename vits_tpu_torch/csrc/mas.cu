@@ -19,7 +19,10 @@
 // f32 values as the scan's, the exact -1e9 included; the bit at x = 0 is
 // never read), packed 32 to a word by __ballot_sync. The wrapper
 // (vits_tpu_torch/ops/mas.py::plan) picks the form and passes its numbers;
-// mas_forward checks them against the shape.
+// mas_forward checks them against the shape with its own copy of the plan's
+// rules (kWarpRs, warp_smem, geometry: keep them equal to ops/mas.py's;
+// tests/test_torch_cuda.py::test_mas_plan_agrees_with_the_kernel runs the
+// two against each other on the card).
 //
 // Bound. By bytes its least time is one read of the t_y x t_x cells of neg
 // and one write of the path, about 1.4 us at 16 x 400 x 96 at 3.35 TB/s. It
@@ -28,13 +31,14 @@
 // sub-partition's issue slots), then the t_y-step walk back, with B of the
 // 132 SMs busy.
 //
-// Form "warp" (T_x <= 1024, ring and bits within shared memory), for the
+// Form "warp" (T_x <= 992, ring and bits within shared memory), for the
 // training step's shapes. A block of four warps per utterance, with roles:
 //  - warp 0 runs the DP with no block barrier per row. Lane l holds the R
-//    contiguous columns x = l * R + r in registers, R = ceil(T_x / 32) made
-//    odd; the left neighbour of its first column is one __shfl_up_sync of
-//    lane l - 1's last. Per row, R full-warp ballots give R words, word r
-//    holding column l * R + r at bit l (T_y * R words in shared memory).
+//    contiguous columns x = l * R + r in registers, R the first of kWarpRs
+//    with 32 R >= T_x (odd, and at most 31); the left neighbour of its first
+//    column is one __shfl_up_sync of lane l - 1's last. Per row, R full-warp
+//    ballots give R words, word r holding column l * R + r at bit l, and
+//    lane r stores word r (T_y * R words in shared memory).
 //  - neg arrives ahead of the DP in a shared-memory ring of D rows (as many
 //    as fit, up to 256), in four parts of D / 4 rows: warps 1-3 copy a part
 //    with coalesced loads (float4 where T_x is a multiple of 4) and release
@@ -50,7 +54,7 @@
 // Measured on an H100 (scripts/probe_k2_phases.py), the DP takes most of
 // the time; per-thread 4-byte cp.async copies of neg, tried first, cost more
 // than the DP itself.
-// Form "block" (the shapes "warp" does not take: T_x > 1024, or bits past
+// Form "block" (the shapes "warp" does not take: T_x > 992, or bits past
 // shared memory): one block per utterance with its threads over x (XPT
 // columns each when T_x > 1024), the previous DP row double-buffered in
 // shared memory and one __syncthreads() per row; the bits and the path's
@@ -156,6 +160,7 @@ mas_warp_kernel(const float* __restrict__ neg, const int* __restrict__ t_ys,
                 const int* __restrict__ t_xs, float* __restrict__ path, int T_y, int T_x,
                 int D) {
   static_assert(R % 2 == 1, "an odd R keeps warp 0's ring reads on 32 banks");
+  static_assert(R <= 32, "lane r keeps and stores word r of a row");
   // The ring: D rows of W floats as in neg, then 32 R floats that the last
   // row's padded columns read; lane l reads row[l * R + r], 32 banks apart.
   const int W = (T_x + 3) / 4 * 4;
@@ -276,15 +281,32 @@ cudaError_t launch_warp(const float* neg, const int* t_ys, const int* t_xs, floa
   return cudaGetLastError();
 }
 
-typedef cudaError_t (*WarpLaunch)(const float*, const int*, const int*, float*, int, int, int,
-                                  int, int, cudaStream_t);
+// Columns per lane the form is built for (ops/mas.py::WARP_RS): R is the
+// first that covers T_x over 32 lanes, so T_x <= 32 * 31 = 992.
+constexpr int kWarpRs[] = {1, 3, 5, 7, 9, 13, 17, 25, 31};
+constexpr int kWarpMaxTx = 32 * 31;
 
-template <int... Rs>
-struct WarpTable {  // fns[(R - 1) / 2] launches the form at R (odd) columns per lane
-  static constexpr WarpLaunch fns[sizeof...(Rs)] = {&launch_warp<Rs>...};
-};
+int warp_r(int T_x) {
+  for (int r : kWarpRs)
+    if (32 * r >= T_x) return r;
+  return 0;
+}
 
-using WarpForms = WarpTable<1, 3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 23, 25, 27, 29, 31, 33>;
+cudaError_t launch_warp_r(const float* neg, const int* t_ys, const int* t_xs, float* path,
+                          int B, int T_y, int T_x, int R, int D, int smem, cudaStream_t s) {
+  switch (R) {
+    case 1: return launch_warp<1>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 3: return launch_warp<3>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 5: return launch_warp<5>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 7: return launch_warp<7>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 9: return launch_warp<9>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 13: return launch_warp<13>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 17: return launch_warp<17>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 25: return launch_warp<25>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    case 31: return launch_warp<31>(neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 // ---------------------------------------------------------------------------
 // form "block"
@@ -422,8 +444,8 @@ extern "C" {
 // Launches the search on `stream` in the form the wrapper's plan chose, and
 // returns the cudaError_t of the launch (0 on success). neg (B, T_y, T_x)
 // f32, path (B, T_y, T_x) f32, t_ys/t_xs (B,) int32, all contiguous on the
-// device. form 0 ("warp", T_x <= 1024): R = ceil(T_x / 32) made odd columns
-// per lane, a ring of D rows (a multiple of 4), smem = warp_smem bytes. form
+// device. form 0 ("warp", T_x <= 992): R = warp_r(T_x) columns per lane, a
+// ring of D rows (a multiple of 4), smem = warp_smem bytes. form
 // 1 ("block"): R is the columns per thread and smem the shared memory of
 // `geometry`; scratch holds B * (T_y * ceil(T_x / 32) + T_y) words where the
 // bits do not fit in shared memory (else it may be null). Plan numbers that
@@ -435,11 +457,10 @@ int mas_forward(const float* neg, const int* t_ys, const int* t_xs, float* path,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T_y <= 0 || T_x <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (form == 0) {
-    if (T_x > 1024 || R != ((T_x + 31) / 32 | 1) || D < kParts || D % kParts ||
+    if (T_x > kWarpMaxTx || R != warp_r(T_x) || D < kParts || D % kParts ||
         smem != warp_smem(T_y, T_x, R, D) || smem > kSmemLimit)
       return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(
-        WarpForms::fns[(R - 1) / 2](neg, t_ys, t_xs, path, B, T_y, T_x, D, smem, s));
+    return static_cast<int>(launch_warp_r(neg, t_ys, t_xs, path, B, T_y, T_x, R, D, smem, s));
   }
   Geometry g;
   if (form != 1 || !geometry(T_y, T_x, &g) || g.xpt != R || g.smem != smem ||

@@ -86,8 +86,13 @@ def maximum_path_plain(neg_cent: torch.Tensor, t_ys: torch.Tensor,
 # CUDA kernel
 # ---------------------------------------------------------------------------
 
+# The plan's numbers are checked again by mas_forward in csrc/mas.cu, which
+# holds its own copy of the rules below (kWarpRs, warp_smem, geometry) and
+# refuses a plan that differs; tests/test_torch_cuda.py::
+# test_mas_plan_agrees_with_the_kernel runs the two against each other.
 SMEM_LIMIT = 232448                     # dynamic shared memory a block may use on sm_90
-WARP_MAX_TX = 1024                      # form "warp": the widest T_x it takes
+WARP_RS = (1, 3, 5, 7, 9, 13, 17, 25, 31)  # form "warp": columns per lane, each odd
+WARP_MAX_TX = 32 * WARP_RS[-1]          # ... the widest T_x it takes (992)
 WARP_RINGS = (256, 128, 64, 32, 16, 8)  # ... rows of neg in its ring, the deepest that fits
 WARP_PARTS = 4                          # ... in parts, each copied and released as one
 BLOCK_MAX_THREADS = 1024                # form "block"
@@ -103,7 +108,7 @@ class Plan:
     """How `maximum_path_cuda` runs one shape (the C entry checks it).
 
     form: "warp" (one block of 4 warps per utterance, warp 0 runs the DP
-    with R = ceil(T_x / 32), made odd, columns per lane while warps 1-3 copy
+    with R = `warp_r(T_x)` columns per lane while warps 1-3 copy
     neg into a ring of D rows, in WARP_PARTS parts of D / WARP_PARTS rows,
     and zero-fill the path) or "block" (one block per utterance, its threads
     over the columns, R per thread, one barrier per row; D = 0). smem:
@@ -115,6 +120,14 @@ class Plan:
     D: int
     smem: int
     scratch_words: int = 0
+
+
+def warp_r(T_x: int) -> int:
+    """Form "warp": columns per lane for T_x <= WARP_MAX_TX, the first of
+    WARP_RS that covers T_x over 32 lanes. Odd, so lane l's reads of ring
+    column l R + r fall on 32 banks; at most 31, so lane r holds word r of a
+    row's R move-left words."""
+    return next(r for r in WARP_RS if 32 * r >= T_x)
 
 
 def warp_smem(T_y: int, T_x: int, R: int, D: int) -> int:
@@ -145,14 +158,14 @@ def block_plan(T_y: int, T_x: int) -> Plan:
 
 @functools.lru_cache(maxsize=None)
 def plan(B: int, T_y: int, T_x: int) -> Plan:
-    """The kernel's plan for neg_cent (B, T_y, T_x): "warp" where T_x <= 1024
-    and a ring of at least 8 rows fits beside the bits (the deepest ring of
-    WARP_RINGS that fits), else "block". Raises where neither form takes the
-    shape."""
+    """The kernel's plan for neg_cent (B, T_y, T_x): "warp" where T_x <=
+    WARP_MAX_TX and a ring of at least 8 rows fits beside the bits (the
+    deepest ring of WARP_RINGS that fits), else "block". Raises where neither
+    form takes the shape."""
     if B <= 0 or T_y <= 0 or T_x <= 0:
         raise ValueError(f"maximum_path: no kernel form takes shape {(B, T_y, T_x)}")
     if T_x <= WARP_MAX_TX:
-        R = -(-T_x // 32) | 1  # odd: lane l's reads of ring[l R + r] hit 32 banks
+        R = warp_r(T_x)
         for D in WARP_RINGS:
             smem = warp_smem(T_y, T_x, R, D)
             if smem <= SMEM_LIMIT:
