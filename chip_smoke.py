@@ -12,8 +12,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 256/128/64/32 x k = 3/7/11, dilations 1/3/5, B = 1, 256
                 frames, ragged valid length; each with its plan's form, T
                 and launches, kernel ms - device time, from a CUDA graph
-                of 20 calls - against the bound) and at a B = 4
-                ragged case (C = 64, k = 7), and K2, MAS, against its plain
+                of 20 calls - against the bound), at a B = 4 ragged case
+                (C = 64, k = 7) and, bit-equal, over the longest fused
+                frame budget (C = 32, k = 11, 4096 x 192 samples, a
+                700-frame request in it), and K2, MAS, against its plain
                 version, bit-exact, at (16, 400, 96) with the training
                 bench's lengths, (32, 1000, 384) (the base config's longest
                 utterance and text), (1, 1000, 1), a t_x == t_y case and
@@ -22,13 +24,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 (device time, from a CUDA graph of 20 calls), plain ms,
                 bound ms and errors;
   3. serving  - write a seeded random base-config checkpoint at full width,
-                serve it with EmoVITS(device="cuda", quantize=True): 8
-                calibration requests (float decodes), then int8 requests
-                whose every ResBlock2 chain must go through the kernel
-                (launch counts checked against the chains' plans), each
-                compared with the float decode of the same request; one
-                request's float decode is also held against the CPU;
-  4. training - the base config's mel/MPD GAN step at full width (seeded
+                serve it two-phase (`_infer_two_phase`) with
+                EmoVITS(device="cuda", quantize=True): 8 calibration
+                requests (float decodes), then int8 requests whose every
+                ResBlock2 chain must go through the kernel (launch counts
+                checked against the chains' plans), each compared with the
+                float decode of the same request; one request's float decode
+                is also held against the CPU;
+  4. fused    - on the calibrated model, after one untimed round of the
+                first request, 8 requests of 256-2048 frames in
+                three modes in turns: two-phase int8, fused float (the
+                default of `infer`) and fused int8 (VITS_TPU_FUSED_Q8=1):
+                each request's latency per mode, the means and medians;
+                fused lengths equal two-phase's, K1 launches per fused int8
+                request equal the plans at the frame budget, fused int8
+                against fused float; one fused float request held against
+                a CPU copy of the model; one request with a clipped budget
+                through the two-phase retry;
+  5. stream   - one request through `infer_stream` against the two-phase
+                float output (atol 1e-4); time to the first chunk and to the
+                whole utterance;
+  6. servers  - TTServer(port=0, device="cuda", quantize=True) on the same
+                checkpoint, 2 calibration requests, then fused int8 requests
+                through `protocol.synthesize` (K1 must launch on each), one
+                `synthesize_stream` request and one POST through the HTTP
+                gateway on a free port; each reply a RIFF WAV; the client
+                latency of each; both servers stopped;
+  7. training - the base config's mel/MPD GAN step at full width (seeded
                 random weights with weight norm, AdamW from
                 build_optimizers), on the training bench's synthetic batch
                 (B 16, T_x 96, 400 spec frames, spec shipped): 1 warm-up and
@@ -37,7 +59,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 peak memory; then one step on the card against the same step
                 on the CPU (B = 2, same weights and noise, dropout off): the
                 losses agree and the MAS paths are equal;
-  5. card     - print the card's name and power limit.
+  8. card     - print the card's name and power limit.
+Each phase prints the seconds it took. K1's launches in the kernels line are
+those of the serving, fused and server phases, each read with the counter set
+to 0 just before the path runs and read just after.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -68,6 +93,10 @@ LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-5
 CHAIN_FRAMES = 256    # T_y of the kernel check: M = 256 * (8, 48, 96, 192)
 N_CALIB = 8
 N_INT8 = 4
+N_FUSED = 8           # requests served in the three modes of the fused phase, in turns
+RING_FRAMES = 4096    # the noise ring's frames: the longest fused frame budget
+SERVER_CALIB = 2      # the socket server's int8 calibration requests
+SERVER_INT8 = 3       # ... and its requests after the freeze
 # each int8 request's waveform against the float decode of the same request:
 # the JAX package's bench guard (bench.py); the gate's stricter 0.995 applies
 # to the freezing request, whose activations the scales were calibrated on
@@ -167,9 +196,11 @@ def k1_shapes():
 
 
 def phase_kernels(dev):
-    """K1 against its plain version at the 12 base-config chain shapes, and
-    at one B = 4 ragged case (C = 64, k = 7) that runs the batch dimension of
-    the whole-chain tiling."""
+    """K1 against its plain version at the 12 base-config chain shapes, at
+    one B = 4 ragged case (C = 64, k = 7) that runs the batch dimension of
+    the whole-chain tiling, and at the 12 chains over the longest fused frame
+    budget (RING_FRAMES frames, so a persistent block works through several
+    tiles) with a 700-frame request in it, bit-equal."""
     from vits_tpu_torch.nn import rb_chain
 
     shapes, gin = k1_shapes()
@@ -178,9 +209,13 @@ def phase_kernels(dev):
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
     gen = torch.Generator().manual_seed(SEED)
     M4 = CHAIN_FRAMES * 48
-    cases = [(C, k, dil, M, [v]) for C, k, dil, M, v in shapes] + \
-        [(64, 7, (1, 3, 5), M4, [M4 - 1, M4 - 3001, M4 // 2 + 17, 901])]
-    for n_case, (C, k, dil, M, lens) in enumerate(cases):
+    # the batch case; and each chain over the fused budget: the masked tail
+    # the fused path gives K1 (valid = the request's samples, M the budget's)
+    extra = [(64, 7, (1, 3, 5), M4, [M4 - 1, M4 - 3001, M4 // 2 + 17, 901], False)]
+    extra += [(C, k, dil, M // CHAIN_FRAMES * RING_FRAMES, [M // CHAIN_FRAMES * 700], True)
+              for C, k, dil, M, _ in shapes]
+    cases = [(C, k, dil, M, [v], False) for C, k, dil, M, v in shapes] + extra
+    for n_case, (C, k, dil, M, lens, bit_equal) in enumerate(cases):
         B = len(lens)
         qp, x, gs, valid = k1_case(dev, gen, C, k, dil, gin, lens, M)
         out = rb_chain.chain_q8_cuda(qp, x, gs, valid)
@@ -192,15 +227,17 @@ def phase_kernels(dev):
         scale = max(1.0, float(ref.abs().max()))
         err = float(diff.max())
         off = float((diff > 1e-3 * float(ref.abs().max())).float().mean())
-        ok = err <= 0.05 * scale and off < 0.01
+        ok = err <= 0.05 * scale and off < 0.01 and (not bit_equal or torch.equal(out, ref))
         worst = max(worst, err)
         p = rb_chain.plan(B, M, C, k, dil, n_sm)
-        check = (f"max_abs_err {err:.3e} (tol {0.05 * scale:.3e})  off>1e-3*max "
+        check = (f"max_abs_err {err:.3e} (tol {0.05 * scale:.3e}"
+                 f"{', bit-equal required' if bit_equal else ''})  off>1e-3*max "
                  f"{100 * off:.3f}%  {'OK' if ok else 'FAIL'}")
-        if n_case >= len(shapes):  # the batch case: checked, not part of a request
-            log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:5d} valid={lens}: "
-                f"{p.form} T={p.T} launches {p.launches}: {check}")
-            rows.append(dict(B=B, C=C, k=k, M=M, ok=ok, batch_case=True))
+        if n_case >= len(shapes):  # checked, not part of the 256-frame request
+            log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:6d} valid={lens}: "
+                f"{p.form} T={p.T} grid {p.grid} launches {p.launches}: {check}")
+            rows.append(dict(B=B, C=C, k=k, M=M, ok=ok, extra_case=True))
+            del x, qp, out, ref, diff
             continue
         ms = graph_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid))
         call_ms = cuda_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid), iters=20)
@@ -223,10 +260,11 @@ def phase_kernels(dev):
         tot["bytes_s"] += nbytes / HBM_BW
         del x, qp, out, ref
     bad = [r for r in rows if not r["ok"]]
-    rows = [r for r in rows if not r.get("batch_case")]
+    rows = [r for r in rows if not r.get("extra_case")]
     if bad:
         raise RuntimeError(f"K1 disagrees with its plain version at {len(bad)} shape(s): {bad}")
-    log(f"[kernels] rb2_chain_q8: all {len(rows)} shapes and the B = 4 case agree; the "
+    log(f"[kernels] rb2_chain_q8: all {len(rows)} shapes, the B = 4 case and the "
+        f"{len(shapes)} chains over the {RING_FRAMES}-frame fused budget agree; the "
         f"12 chains of a {CHAIN_FRAMES}-frame request: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
         f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), "
@@ -466,7 +504,10 @@ def k1_launches_per_decode(m, frames: int, dev) -> int:
     return total
 
 
-def phase_serving(dev):
+def phase_serving(dev, workdir):
+    """Two-phase int8 serving (`_infer_two_phase`): the calibration, the
+    freeze and its gate, K1 on every int8 decode. Returns the K1 launches,
+    the latencies, the calibrated model, its requests and its checkpoint."""
     from vits_tpu_torch.config import default_config_path
     from vits_tpu_torch.infer import EmoVITS
     from vits_tpu_torch.nn import rb_chain
@@ -474,13 +515,12 @@ def phase_serving(dev):
     with open(default_config_path("base")) as f:
         hps_dict = json.load(f)
     rng = np.random.RandomState(SEED)
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        ckpt = _write_checkpoint(d, hps_dict, SEED)
-        model = EmoVITS(ckpt, device=str(dev), quantize=True)
-        log(f"[serving] base config at full width (gin {hps_dict['model']['gin_channels']}, "
-            f"{hps_dict['data']['n_speakers']} speakers, text {hps_dict['data']['text_channels']}); "
-            f"checkpoint written and loaded in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ckpt = _write_checkpoint(workdir, hps_dict, SEED)
+    model = EmoVITS(ckpt, device=str(dev), quantize=True)
+    log(f"[serving] base config at full width (gin {hps_dict['model']['gin_channels']}, "
+        f"{hps_dict['data']['n_speakers']} speakers, text {hps_dict['data']['text_channels']}); "
+        f"checkpoint written and loaded in {time.perf_counter() - t0:.1f} s")
     if model.q8_calib_requests != N_CALIB:
         raise RuntimeError(f"expected {N_CALIB} calibration requests, "
                            f"VITS_TPU_Q8_CALIB_REQUESTS gives {model.q8_calib_requests}")
@@ -494,7 +534,7 @@ def phase_serving(dev):
         before = rb_chain.counter.launches
         np.random.seed(SEED + i)
         t0 = time.perf_counter()
-        wav, _ = model.infer(spk, text, emo, duration_rate=rate)
+        wav, _ = model._infer_two_phase(spk, text, emo, duration_rate=rate)
         ms = (time.perf_counter() - t0) * 1e3
         launched = rb_chain.counter.launches - before
         frames = len(wav) // hop
@@ -533,7 +573,7 @@ def phase_serving(dev):
             model.dec_q8 = None
             model.quantize = False
             np.random.seed(SEED + i)
-            wav_f, _ = model.infer(spk, text, emo, duration_rate=rate)
+            wav_f, _ = model._infer_two_phase(spk, text, emo, duration_rate=rate)
             model.dec_q8, model.quantize = dec_q8, True
             corr = float(np.corrcoef(wav_q, wav_f)[0, 1])
             if not corr > MIN_REQUEST_CORR:
@@ -568,7 +608,338 @@ def phase_serving(dev):
         f"(tol 2e-3), corr {corr:.8f} (> 0.99999)")
     if not (err <= 2e-3 and corr > 0.99999):
         raise RuntimeError("the float decode on the card disagrees with the CPU")
-    return main_launches, lat, audio_s
+    return main_launches, lat, audio_s, model, reqs, ckpt
+
+
+def _timed_call(fn, *a, **k):
+    """fn(*a, **k) and its host-clock ms; every serving entry point ends in a
+    host copy of the waveform, so the clock stops after the device's work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*a, **k)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _env(**values):
+    """Set environment variables (None unsets); returns the old values."""
+    old = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return old
+
+
+def _corr(a, b) -> float:
+    return float(np.corrcoef(np.ravel(a), np.ravel(b))[0, 1])
+
+
+def phase_fused(dev, model, ckpt):
+    """The calibrated model serves N_FUSED requests of 256-2048 frames in
+    three modes in turns, each request in each mode before the next request:
+    two-phase int8, fused float (the default of `infer` once the int8
+    decoder is frozen) and fused int8 (VITS_TPU_FUSED_Q8=1), with the same
+    seed. Checks: the fused pass served every request (frames below its
+    budget) at two-phase's length; K1 launches per fused int8 request equal
+    the plans at the budget (the decoder runs over the budget, not the
+    request), none in fused float; fused int8 against fused float. Then one
+    fused float request on the card against a CPU copy of the model, and one
+    request whose clipped budget sends it through the two-phase retry."""
+    from vits_tpu_torch.infer import EmoVITS
+    from vits_tpu_torch.nn import rb_chain
+
+    m, hop, sr = model.hps.model, model.hop_size, model.sampling_rate
+    up = int(np.prod(m.upsample_rates))     # samples per frame at the last stage
+    reqs = _requests(model, N_FUSED, np.random.RandomState(SEED + 1), dev)
+    modes = ("two-phase int8", "fused float", "fused int8")
+    lat = {mode: [] for mode in modes}
+    audio_s, lengths = 0.0, []
+    saved = _env(VITS_TPU_FUSED_Q8=None, VITS_TPU_FUSED_FRAMES_PER_TOKEN=None)
+    rb_chain.counter.launches = 0           # main path starts here
+    # one untimed round of the first request in each mode: the fused pass's
+    # shapes (the 4096-frame budget) are new to this process; two-phase's
+    # change with every request's frame bucket, as they do in service
+    spk, text, emo, rate = reqs[0]
+    for mode in modes:
+        _env(VITS_TPU_FUSED_Q8="1" if mode == "fused int8" else "0")
+        fn = model._infer_two_phase if mode.startswith("two") else model.infer_fused
+        (_, _), ms = _timed_call(fn, spk, text, emo, duration_rate=rate)
+        log(f"[fused] warm-up, request 0, {mode}: {ms:.2f} ms")
+    for i, (spk, text, emo, rate) in enumerate(reqs):
+        budget = model.fused_frames(len(text), rate)
+        out = {}
+        for mode in modes:
+            _env(VITS_TPU_FUSED_Q8="1" if mode == "fused int8" else "0")
+            fn = model._infer_two_phase if mode.startswith("two") else model.infer_fused
+            before = rb_chain.counter.launches
+            rb_chain.counter.last = None
+            np.random.seed(SEED + 200 + i)
+            (wav, _), ms = _timed_call(fn, spk, text, emo, duration_rate=rate)
+            out[mode] = (wav, ms, rb_chain.counter.launches - before, rb_chain.counter.last)
+            lat[mode].append(ms)
+        frames = len(out["two-phase int8"][0]) // hop
+        lengths.append(frames * hop)
+        audio_s += frames * hop / sr
+        if frames >= budget:
+            raise RuntimeError(f"fused phase, request {i}: {frames} frames fill the budget "
+                               f"{budget}; the two-phase retry served it, not the fused pass")
+        want_2p = k1_launches_per_decode(m, frames, dev)
+        want_fused = k1_launches_per_decode(m, budget, dev)
+        # the last chain's M is the decoded frames': the budget's in the fused
+        # pass, the frame bucket's in two-phase; its valid is the request's
+        want_m = {"two-phase int8": model._quantize(frames, model.frame_quantum) * up,
+                  "fused int8": budget * up}
+        for mode, (wav, ms, launched, last) in out.items():
+            if len(wav) != frames * hop or not np.all(np.isfinite(wav)):
+                raise RuntimeError(f"fused phase, request {i}, {mode}: {len(wav)} samples, "
+                                   f"two-phase {frames * hop}, or a non-finite value")
+            want = {"two-phase int8": want_2p, "fused float": 0, "fused int8": want_fused}[mode]
+            if launched != want:
+                raise RuntimeError(f"fused phase, request {i}, {mode}: K1 launched {launched} "
+                                   f"times, expected {want}")
+            if mode in want_m and (last[0] != want_m[mode] or
+                                   int(last[1][0]) != frames * up):
+                raise RuntimeError(f"fused phase, request {i}, {mode}: K1's last launch had "
+                                   f"M {last[0]}, valid {int(last[1][0])}; expected M "
+                                   f"{want_m[mode]}, valid {frames * up}")
+        corr = _corr(out["fused int8"][0], out["fused float"][0])
+        if not corr > MIN_REQUEST_CORR:
+            raise RuntimeError(f"fused phase, request {i}: fused int8 vs fused float corr {corr}")
+        log(f"[fused] request {i}: {len(text):3d} tokens, {frames:4d} frames, budget {budget:4d}"
+            f" frames: " + ", ".join(f"{mode} {out[mode][1]:.2f} ms (K1 {out[mode][2]})"
+                                     for mode in modes)
+            + f"; fused int8 vs float corr {corr:.6f}; K1's last M: two-phase "
+            f"{out['two-phase int8'][3][0]}, fused {out['fused int8'][3][0]}")
+    launches = rb_chain.counter.launches    # main path ends here
+    for mode in modes:
+        v = np.array(lat[mode])
+        log(f"[fused] {mode:14s}: {len(v)} requests, latency mean {v.mean():.2f} ms median "
+            f"{np.median(v):.2f} ms, {audio_s / (v.sum() / 1e3):.1f} audio-s/s")
+
+    # one fused float request on the card against a CPU copy of the model:
+    # 64 tokens at the rate that gives about 128 frames, to keep the CPU's
+    # decode over the budget short
+    spk, text, emo, _ = reqs[0]
+    text = text[:64]
+    with torch.inference_mode():
+        _, _, logw, _ = model.synth.infer_p1(
+            torch.from_numpy(text[None]).to(dev), torch.from_numpy(emo[None]).to(dev),
+            torch.tensor([spk], device=dev))
+    rate = 128.0 / float(torch.exp(logw).sum())
+    _env(VITS_TPU_FUSED_Q8="0")
+    cpu_model = EmoVITS(ckpt, device="cpu")
+    np.random.seed(SEED + 300)
+    wav_gpu, _ = model.infer_fused(spk, text, emo, duration_rate=rate)
+    np.random.seed(SEED + 300)
+    t0 = time.perf_counter()
+    wav_cpu, _ = cpu_model.infer_fused(spk, text, emo, duration_rate=rate)
+    cpu_s = time.perf_counter() - t0
+    budget = model.fused_frames(len(text), rate)
+    if len(wav_gpu) != len(wav_cpu) or len(wav_gpu) // hop >= budget:
+        raise RuntimeError(f"fused float, card vs CPU: {len(wav_gpu)} against {len(wav_cpu)} "
+                           f"samples (budget {budget} frames)")
+    err = float(np.abs(wav_gpu - wav_cpu).max())
+    corr = _corr(wav_gpu, wav_cpu)
+    log(f"[fused] fused float, card vs CPU, {len(wav_gpu) // hop} frames in a {budget}-frame "
+        f"budget (CPU {cpu_s:.1f} s): max_abs_err {err:.3e} (tol 2e-3), corr {corr:.8f} "
+        f"(> 0.99999)")
+    if not (err <= 2e-3 and corr > 0.99999):
+        raise RuntimeError("the fused float request on the card disagrees with the CPU")
+    del cpu_model
+
+    # a clipped budget: the request is served again by the exact two-phase path
+    spk, text, emo, rate = reqs[0]
+    _env(VITS_TPU_FUSED_Q8="1", VITS_TPU_FUSED_FRAMES_PER_TOKEN="0.1")
+    budget = model.fused_frames(len(text), rate)
+    rb_chain.counter.launches = 0           # main path starts here
+    np.random.seed(SEED + 400)
+    (wav, _), ms = _timed_call(model.infer, spk, text, emo, duration_rate=rate)
+    retry_launches = rb_chain.counter.launches  # main path ends here
+    launches += retry_launches
+    _env(**saved)
+    # the fused pass's int8 decode over the budget, then the two-phase one
+    want = k1_launches_per_decode(m, budget, dev) + k1_launches_per_decode(m, lengths[0] // hop,
+                                                                         dev)
+    if len(wav) != lengths[0] or budget * hop > len(wav) or retry_launches != want:
+        raise RuntimeError(f"the two-phase retry gave {len(wav)} samples, two-phase "
+                           f"{lengths[0]} (budget {budget} frames), K1 launches "
+                           f"{retry_launches}, expected {want}")
+    log(f"[fused] budget clipped to {budget} frames: the two-phase retry served "
+        f"{len(wav) // hop} frames, as two-phase does, in {ms:.2f} ms (the fused pass, then "
+        f"two-phase int8), K1 launches {retry_launches}")
+    return launches, lat
+
+
+def phase_stream(dev, model, req):
+    """One full-width request through `infer_stream` (float decoder,
+    windows of the frame quantum with a 24-frame halo) against the two-phase
+    float output of the same request: the concatenation within 1e-4 (cuDNN
+    may pick other algorithms per window). The request streams twice: cold
+    (the first use of the windows' shapes in this process) and warm. Prints
+    the time to the first chunk and to the whole utterance of each."""
+    spk, text, emo, rate = req
+    dec_q8 = model.dec_q8
+    model.dec_q8, model.quantize = None, False
+    np.random.seed(SEED + 500)
+    (ref, _), ms_2p = _timed_call(model._infer_two_phase, spk, text, emo, duration_rate=rate)
+    frames = len(ref) // model.hop_size
+    times = {}
+    for run in ("cold", "warm"):
+        np.random.seed(SEED + 500)
+        chunks = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in model.infer_stream(spk, text, emo, duration_rate=rate):
+            if not chunks:
+                first_ms = (time.perf_counter() - t0) * 1e3
+            chunks.append(chunk)
+        total_ms = (time.perf_counter() - t0) * 1e3
+        wav = np.concatenate(chunks)
+        err = float(np.abs(wav - ref).max()) if wav.shape == ref.shape else float("inf")
+        times[run] = (first_ms, total_ms)
+        log(f"[stream] {run}: {len(text)} tokens, {frames} frames in {len(chunks)} chunks of "
+            f"{model.frame_quantum} frames: first chunk {first_ms:.2f} ms, whole utterance "
+            f"{total_ms:.2f} ms (two-phase float {ms_2p:.2f} ms); against two-phase float: "
+            f"max_abs_err {err:.3e} (tol 1e-4)")
+        if not err <= 1e-4:
+            raise RuntimeError("the streamed request differs from the two-phase float output")
+    model.dec_q8, model.quantize = dec_q8, True
+    return times, ms_2p
+
+
+def _pcm(wav_bytes) -> np.ndarray:
+    """The samples of a 16-bit PCM RIFF WAV reply, its header checked."""
+    import struct
+    if len(wav_bytes) <= 44 or wav_bytes[:4] != b"RIFF" or wav_bytes[8:12] != b"WAVE" \
+            or struct.unpack("<I", wav_bytes[40:44])[0] != len(wav_bytes) - 44:
+        raise RuntimeError(f"not a RIFF WAV reply ({len(wav_bytes)} bytes)")
+    return np.frombuffer(wav_bytes[44:], np.int16)
+
+
+def phase_servers(dev, ckpt):
+    """The socket server and the HTTP gateway at full width:
+    TTServer(port=0, device="cuda", quantize=True) with SERVER_CALIB
+    calibration requests and VITS_TPU_FUSED_Q8=1, so that after the freeze
+    its requests run the fused pass with the int8 decoder. Sends requests
+    through `protocol.synthesize` until the int8 decoder is frozen and
+    SERVER_INT8 more (K1 must launch on each of those), one
+    `synthesize_stream` request and one POST through the gateway on a free
+    port; prints the client-side latency of each and stops both servers."""
+    import threading
+    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.serve import http_server
+    from vits_tpu_torch.serve.protocol import synthesize, synthesize_stream
+    from vits_tpu_torch.serve.socket_server import TTServer
+
+    saved = _env(VITS_TPU_Q8_CALIB_REQUESTS=str(SERVER_CALIB), VITS_TPU_FUSED_Q8="1",
+                 VITS_TPU_FUSED=None, VITS_TPU_FUSED_FRAMES_PER_TOKEN=None)
+    t0 = time.perf_counter()
+    srv = TTServer(port=0, device=str(dev), quantize=True, ckpt_path=ckpt)
+    httpd = None
+    try:
+        remote = ("127.0.0.1", srv.start())
+        speecher = srv.tts.speecher
+        log(f"[servers] socket server on port {remote[1]}, model on {speecher.device}, "
+            f"calibration {speecher.q8_calib_requests} requests; started in "
+            f"{time.perf_counter() - t0:.1f} s")
+        # each fused pass the server makes: its budget, frames, and K1's launches
+        # and last launch (an int8 request decodes over the budget, not its frames)
+        passes, infer_fused = [], speecher.infer_fused
+
+        def recorded_infer_fused(spkid, text, emo=None, *, duration_rate=1.0):
+            before = rb_chain.counter.launches
+            rb_chain.counter.last = None
+            wav, emo_vec = infer_fused(spkid, text, emo, duration_rate=duration_rate)
+            passes.append((speecher.fused_frames(len(text), duration_rate),
+                           len(wav) // speecher.hop_size, rb_chain.counter.launches - before,
+                           rb_chain.counter.last))
+            return wav, emo_vec
+
+        speecher.infer_fused = recorded_infer_fused
+        m = speecher.hps.model
+        up = int(np.prod(m.upsample_rates))
+        emo = np.random.RandomState(SEED + 600).randn(1024).astype(np.float32).tolist()
+        texts = ["The quick brown fox jumps over the lazy dog, again and again.",
+                 "Speech served through the socket server at full width, twice.",
+                 "A third request: the int8 decoder is frozen after this one.",
+                 "Served by the fused pass with the int8 decoder on the card.",
+                 "Another int8 request, a little shorter than the one before.",
+                 "And the last int8 request of this phase, then streaming."]
+        texts = texts[:SERVER_CALIB + SERVER_INT8]
+        rb_chain.counter.launches = 0       # main path starts here
+        int8_launches = []
+        for i, text in enumerate(texts):
+            frozen = speecher.dec_q8 is not None
+            before = rb_chain.counter.launches
+            n_passes = len(passes)
+            t0 = time.perf_counter()
+            out = synthesize({"text": text, "spkid": i + 1, "speed": 2.0,
+                              "emotion": np.asarray(emo, np.float32)}, remote)
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = rb_chain.counter.launches - before
+            if out is None:
+                raise RuntimeError(f"server request {i}: no reply")
+            pcm = _pcm(out["wav"])
+            kind = "int8" if frozen else "freeze" if speecher.dec_q8 is not None else "calib"
+            note = ""
+            if kind == "int8":
+                # one fused int8 pass: the plans' launches at its budget, the
+                # last chain over the budget with the request's frames valid
+                if len(passes) != n_passes + 1:
+                    raise RuntimeError(f"server request {i}: {len(passes) - n_passes} fused "
+                                       f"passes, expected 1")
+                budget, frames, pass_launches, last = passes[-1]
+                want = k1_launches_per_decode(m, budget, dev)
+                if launched != want or pass_launches != want or last is None or \
+                        last[0] != budget * up or int(last[1][0]) != frames * up:
+                    raise RuntimeError(
+                        f"server request {i}: K1 launched {launched} times, expected {want}; "
+                        f"its last launch M {last and last[0]}, valid "
+                        f"{last and int(last[1][0])}, expected {budget * up}, {frames * up}")
+                int8_launches.append(launched)
+                note = f" (the plans at the {budget}-frame budget; {frames} frames valid)"
+            log(f"[servers] socket request {i} ({kind}): {len(text)} characters, "
+                f"{len(pcm) / out['sr']:.3f} audio s, client latency {ms:.2f} ms, frontend "
+                f"{out['time_used_frontend']:.2f} ms, backend {out['time_used_backend']:.2f} ms, "
+                f"K1 launches {launched}{note}")
+        launches = rb_chain.counter.launches  # main path ends here
+        if speecher.dec_q8 is None or len(int8_launches) != SERVER_INT8:
+            raise RuntimeError(f"the server's int8 requests launched K1 {int8_launches} times")
+
+        t0 = time.perf_counter()
+        first_ms, pcm = None, b""
+        for msg in synthesize_stream({"text": texts[0], "spkid": 1, "speed": 2.0,
+                                      "emotion": np.asarray(emo, np.float32)}, remote):
+            if "pcm" in msg:
+                first_ms = first_ms or (time.perf_counter() - t0) * 1e3
+                pcm += msg["pcm"]
+        ms = (time.perf_counter() - t0) * 1e3
+        if not pcm or not msg.get("final"):
+            raise RuntimeError("the streamed server request returned no audio or no final dict")
+        log(f"[servers] socket stream: {len(pcm) // 2} samples, first chunk {first_ms:.2f} ms, "
+            f"whole {ms:.2f} ms (client side)")
+
+        httpd = http_server.serve("127.0.0.1", 0, remote)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        import urllib.request
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/api/text2speech",
+            data=json.dumps({"tex": texts[1], "per": 2, "spd": -12, "emo": emo}).encode(),
+            headers={"Content-Type": "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=120) as r:
+            body = r.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        pcm = _pcm(body)
+        log(f"[servers] HTTP gateway POST: {len(pcm)} samples, client latency {ms:.2f} ms")
+    finally:
+        if httpd is not None:
+            httpd.shutdown()
+            httpd.server_close()
+        srv.stop()
+        _env(**saved)
+    return launches
 
 
 def card_line() -> str:
@@ -583,7 +954,6 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import vits_tpu_torch  # noqa: F401  (fails when run outside the repo)
-    from vits_tpu_torch.nn import rb_chain
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -591,13 +961,30 @@ def main() -> int:
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    phase_build()
-    rows, worst, tot = phase_kernels(dev)
-    mas_rows = phase_mas(dev)
-    launches, lat, audio_s = phase_serving(dev)
-    if launches <= 0:
-        raise RuntimeError("the serving path launched K1 no time")
-    mas_launches, _, _, _ = phase_training(dev)
+    seconds = {}
+
+    def phase(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[{name}] phase took {seconds[name]:.1f} s")
+        return out
+
+    phase("build", phase_build)
+    rows, worst, tot = phase("kernels", phase_kernels, dev)
+    mas_rows = phase("mas", phase_mas, dev)
+    with tempfile.TemporaryDirectory() as workdir:
+        launches, lat, audio_s, model, reqs, ckpt = phase("serving", phase_serving, dev, workdir)
+        if launches <= 0:
+            raise RuntimeError("the serving path launched K1 no time")
+        fused_launches, _ = phase("fused", phase_fused, dev, model, ckpt)
+        if fused_launches <= 0:
+            raise RuntimeError("the fused int8 path launched K1 no time")
+        phase("stream", phase_stream, dev, model, reqs[N_CALIB])
+        del model
+        torch.cuda.empty_cache()
+        server_launches = phase("servers", phase_servers, dev, ckpt)
+    mas_launches, _, _, _ = phase("training", phase_training, dev)
     if mas_launches <= 0:
         raise RuntimeError("the training path launched K2 no time")
     card = card_line()
@@ -607,7 +994,7 @@ def main() -> int:
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/rb_chain_q8.cu",
         "replaces": "vits_tpu/nn/pallas_rb.py:96",
-        "launches": launches,
+        "launches": launches + fused_launches + server_launches,
         "max_abs_err": worst,
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
@@ -627,7 +1014,9 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": None,
     }]}
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
+        f"serving {launches}, fused {fused_launches}, servers {server_launches}; phases: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Where a served request's time goes on the GPU, for the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_serving.py [--frames 1024] [--out DIR]
+    python3 scripts/profile_torch_serving.py [--frames 1024] [--fused] [--out DIR]
 
 Builds the seeded random full-width base-config deployment that
 chip_smoke.py serves, warms EmoVITS(quantize=True) up through its
-calibration requests, then traces one float and one int8 request of about
-`--frames` frames with torch.profiler. Prints, per request: host latency,
+calibration requests, then traces one two-phase int8 and one two-phase float
+request of about `--frames` frames with torch.profiler; with --fused, also
+the same request through the fused pass with the int8 decoder
+(`infer_fused`, VITS_TPU_FUSED_Q8=1), whose decoder runs over the frame
+budget. Prints, per request: host latency,
 device busy time (the union of kernel intervals), the device's idle share of
 the latency, and the device time and launches by kernel group (the int8
 chain kernel K1, cuBLAS/cuBLASLt GEMMs, cuDNN convolutions, everything
@@ -61,14 +64,14 @@ def _busy_us(events) -> float:
     return busy
 
 
-def profile_request(model, req, seed, label, out_dir):
+def profile_request(fn, model, req, seed, label, out_dir):
     from torch.profiler import ProfilerActivity, profile
     spk, text, emo, rate = req
     np.random.seed(seed)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        wav, _ = model.infer(spk, text, emo, duration_rate=rate)
+        wav, _ = fn(spk, text, emo, duration_rate=rate)
         ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
@@ -100,6 +103,8 @@ def profile_request(model, req, seed, label, out_dir):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=1024)
+    ap.add_argument("--fused", action="store_true",
+                    help="also trace the request through the fused pass, int8 decoder")
     ap.add_argument("--out", default=None, help="directory for chrome traces")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -121,7 +126,7 @@ def main() -> int:
     reqs = cs._requests(model, model.q8_calib_requests + 1, rng, dev)
     for i, (spk, text, emo, rate) in enumerate(reqs[:-1]):
         np.random.seed(cs.SEED + i)
-        model.infer(spk, text, emo, duration_rate=rate)
+        model._infer_two_phase(spk, text, emo, duration_rate=rate)
     if model.dec_q8 is None:
         raise RuntimeError("the int8 decoder did not pass its gate")
     spk, text, emo, _ = reqs[-1]
@@ -135,13 +140,18 @@ def main() -> int:
     def use_int8(on: bool):
         model.dec_q8, model.quantize = (dec_q8, True) if on else (None, False)
 
+    runs = [("int8", True, model._infer_two_phase), ("float", False, model._infer_two_phase)]
+    if args.fused:
+        os.environ["VITS_TPU_FUSED_Q8"] = "1"
+        runs.append(("fused-int8", True, model.infer_fused))
+        print(f"[profile] fused budget {model.fused_frames(len(req[1]), req[3])} frames")
     res = {}
-    for label, on in (("int8", True), ("float", False)):
+    for label, on, fn in runs:
         use_int8(on)
         for _ in range(2):  # warm this path at this request's shapes
             np.random.seed(7)
-            model.infer(*req[:3], duration_rate=req[3])
-        res[label] = profile_request(model, req, 7, label, args.out)
+            fn(*req[:3], duration_rate=req[3])
+        res[label] = profile_request(fn, model, req, 7, label, args.out)
     use_int8(True)
     print(json.dumps({"profile": res, "card": cs.card_line()}))
     return 0

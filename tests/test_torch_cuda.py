@@ -60,6 +60,34 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M, form):
     assert float((diff > 1e-3 * peak).float().mean()) < 0.01
 
 
+@pytest.mark.parametrize("C,up", [(32, 192), (64, 96), (128, 48), (256, 8)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_chain_kernel_at_the_fused_budget(cuda, k, C, up):
+    """Each base-config chain over the longest fused frame budget (4096
+    frames x the stage's upsampling: 786,432 samples at the last stage) with
+    a 700-frame request in it: the long masked tail the fused path gives K1,
+    and at C = 32, 64 and 128 a persistent block that works through several
+    whole-chain tiles. Bit-equal to the plain version."""
+    M, valid = 4096 * up, 700 * up
+    gen = torch.Generator().manual_seed(k + C)
+    rb = init_weights(ResBlock2(C, k, (1, 3, 5), 16), gen).to(cuda).eval()
+    lens = torch.tensor([valid], dtype=torch.int32, device=cuda)
+    mask = (torch.arange(M, device=cuda)[None] < lens[:, None]).float()[..., None]
+    x = torch.randn(1, M, C, generator=gen).to(cuda) * mask
+    g = torch.randn(1, 16, generator=gen).to(cuda)
+    with torch.no_grad():
+        rec = {}
+        rb(x, g, x_mask=mask, record=rec)
+        qp = rb.quantize_params(rec)
+        gs = torch.stack([rb.conds[str(i)](g) for i in range(3)], 1).float()
+    out = rb_chain.resblock2_chain_q8(qp, x, gs, lens)
+    assert rb_chain.counter.last[0] == M and rb_chain.counter.last[1] is lens
+    ref = rb_chain.chain_q8_plain(qp, x, gs, lens)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert not out[:, valid:].any()
+
+
 @pytest.mark.parametrize("B,T_y,T_x,case,form", [
     (16, 400, 96, "bench", "warp"), (3, 37, 37, "diagonal", "warp"),
     (2, 1000, 1, "one_token", "warp"), (2, 2000, 384, "long_utterance", "warp"),

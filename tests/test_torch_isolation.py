@@ -31,8 +31,11 @@ def test_import_loads_no_jax_and_no_vits_tpu():
             "    importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'jaxlib', 'vits_tpu'))\n"
-            "print(len(mods), bad)\n"
-            "sys.exit(1 if bad or len(mods) < 20 else 0)\n")
+            "serving = {'vits_tpu_torch.' + m for m in ('vits_wrap', 'version',\n"
+            "           'utils.torch_compat', 'serve.protocol', 'serve.socket_server',\n"
+            "           'serve.http_server')}\n"
+            "print(len(mods), bad, serving - set(mods))\n"
+            "sys.exit(1 if bad or len(mods) < 34 or serving - set(mods) else 0)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -47,6 +50,37 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         EmoVITS(str(tmp_path / "checkpoint.npz"))
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_serving_front_needs_a_gpu_unless_cpu_is_asked(tmp_path):
+    """VITSWrap and the socket server refuse to start without a GPU with
+    resolve_device's message, before reading a checkpoint or binding a
+    port."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from vits_tpu_torch.serve.socket_server import TTServer
+    from vits_tpu_torch.vits_wrap import VITSWrap
+    ckpt = str(tmp_path / "checkpoint.npz")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VITSWrap(ckpt)
+    srv = TTServer(port=0, ckpt_path=ckpt)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        srv.start()
+    assert srv.tts is None and srv._sock is None
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TTServer(port=0, ckpt_path=ckpt, device="cuda").start()
+
+
+@pytest.mark.parametrize("how", ["argument", "environment"])
+def test_aot_serving_is_refused(tmp_path, monkeypatch, how):
+    """AOT serving is not ported: asking for it raises and names the
+    ROADMAP item rather than serving another path."""
+    from vits_tpu_torch.infer import EmoVITS
+    kw = {"aot": True} if how == "argument" else {}
+    if how == "environment":
+        monkeypatch.setenv("VITS_TPU_AOT", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
+        EmoVITS(str(tmp_path / "checkpoint.npz"), device="cpu", **kw)
 
 
 def test_training_state_needs_a_gpu_unless_cpu_is_asked():

@@ -25,6 +25,8 @@ def _base_chains():
 
 
 BASE = _base_chains()
+# the longest fused frame budget (the 4096-frame noise ring) at the last stage
+FUSED_M = 4096 * 192
 # the forms the arithmetic gives: a whole-chain tile of 64 frames fits beside
 # one dilation's weights everywhere but C = 256 and C = 128 at k = 7, 11
 SPLIT = {(256, 3), (256, 7), (256, 11), (128, 7), (128, 11)}
@@ -34,7 +36,7 @@ SPLIT = {(256, 3), (256, 7), (256, 11), (128, 7), (128, 11)}
 def test_plan_base_chain(C, k, dil, M256):
     assert rb_chain.kernel_form(C, k, dil) == ("split" if (C, k) in SPLIT else "chain")
     for B in (1, 4, 8):
-        for M in (16, 17, 100, 1000, 2048, 4097, M256, 256 * 192):
+        for M in (16, 17, 100, 1000, 2048, 4097, M256, 256 * 192, FUSED_M):
             p = rb_chain.plan(B, M, C, k, dil)
             assert p.smem <= rb_chain.SMEM_LIMIT == 232448
             starts = range(0, M, p.T)

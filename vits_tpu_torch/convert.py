@@ -139,5 +139,5 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
         node = tree
         for p in path:
             node = node.setdefault(p, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = arr.copy()  # C order, a 0-d leaf kept 0-d
     return tree

@@ -1,19 +1,31 @@
-"""Batch-1 two-phase serving engine (counterpart of vits_tpu/infer.py's
-EmoVITS): a deployment directory (config.json + checkpoint.npz written by
-the JAX package), speaker-id remaps `*.map` and per-speaker emotion banks
-`<spkid>.emo` with mtime reload, the pre-sampled noise ring, bucketed
-two-phase inference, and the int8 decoder's calibrate -> quantize ->
-correlation-gate flow.
+"""Batch-1 serving engine (counterpart of vits_tpu/infer.py's EmoVITS): a
+deployment directory (config.json beside a `.npz` checkpoint written by the
+JAX package, or a reference `.pth`), speaker-id remaps `*.map` and
+per-speaker emotion banks `<spkid>.emo` with mtime reload, the pre-sampled
+noise ring, and three synthesis paths:
 
-Phase 1 encodes text and predicts durations on the device; the host turns
-durations into the alignment and slices the noise ring; phase 2 runs the
-flows and the decoder. With `quantize=True` the first
-`VITS_TPU_Q8_CALIB_REQUESTS` requests (default 8) are served by the float
-decoder while their activation max-abs values are recorded; the decoder is
-then quantized and, if its waveform correlates with the float decode on the
-freezing request (`VITS_TPU_Q8_MIN_CORR`, default 0.995), every later
-request decodes in int8, each ResBlock2 chain through the CUDA kernel of
-`vits_tpu_torch.nn.rb_chain` on the GPU.
+- `infer_fused`, the default of `infer`: text encoder, durations, the
+  alignment on the device, flows and decoder in one pass
+  (`Synthesizer.inference`) over a frame budget of
+  `VITS_TPU_FUSED_FRAMES_PER_TOKEN` (default 8) frames per token, its noise
+  a slice of a device copy of the ring, one read back to the host at the
+  end; a request whose durations fill the budget is served again by the
+  exact two-phase path. It decodes in float unless `VITS_TPU_FUSED_Q8=1`
+  (read per call) and the int8 decoder is frozen. `VITS_TPU_FUSED=0` (read
+  at construction) routes `infer` to two-phase.
+- `_infer_two_phase`: phase 1 encodes text and predicts durations on the
+  device; the host turns durations into the alignment and slices the noise
+  ring; phase 2 runs the flows and the decoder.
+- `infer_stream`: two-phase up to the latent, then the float decoder over
+  windows with a receptive-field halo, yielding each window's interior; the
+  chunks concatenate to the two-phase output.
+
+With `quantize=True` the first `VITS_TPU_Q8_CALIB_REQUESTS` requests
+(default 8) are served two-phase by the float decoder while their
+activation max-abs values are recorded; the decoder is then quantized and,
+if its waveform correlates with the float decode on the freezing request
+(`VITS_TPU_Q8_MIN_CORR`, default 0.995), int8 decodes run every ResBlock2
+chain through the CUDA kernel of `vits_tpu_torch.nn.rb_chain` on the GPU.
 
 Entry points run on `cuda` unless `device="cpu"` is passed. fp32 serving on
 the GPU turns TF32 off for cuDNN convolutions and cuBLAS matmuls
@@ -33,10 +45,16 @@ import torch
 from vits_tpu_torch import config as config_mod
 from vits_tpu_torch.convert import params_from_jax
 from vits_tpu_torch.device import resolve_device
-from vits_tpu_torch.models.synthesizer import Synthesizer
+from vits_tpu_torch.models.synthesizer import Synthesizer, stream_windows
 from vits_tpu_torch.ops.seq import infer_path
 from vits_tpu_torch.utils import checkpoint as ckpt_mod
 from vits_tpu_torch.utils.summary import logger
+
+_OFF = ("0", "", "false")
+
+
+def _env_flag(name: str, default: str) -> bool:
+    return os.environ.get(name, default) not in _OFF
 
 
 def find_files(root_dir: str, suffix: str):
@@ -49,12 +67,21 @@ def find_files(root_dir: str, suffix: str):
 
 
 class EmoVITS:
-    """Two-phase bucketed TTS inference on the port."""
+    """Bucketed batch-1 TTS inference on the port: fused by default,
+    two-phase, and streaming."""
 
-    def __init__(self, checkpoint_path: Optional[str] = None, *, device=None,
+    def __init__(self, checkpoint_path: Optional[str] = None, *, device=None, loglv: int = 0,
                  text_quantum: int = 32, frame_quantum: int = 64,
-                 compute_dtype=None, quantize: Optional[bool] = None):
+                 compute_dtype=None, quantize: Optional[bool] = None,
+                 aot: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.loglv = loglv
+        if aot is None:
+            aot = _env_flag("VITS_TPU_AOT", "0")
+        if aot:
+            raise NotImplementedError(
+                "AOT serving (the bucketed graphs of vits_tpu/serve/aot.py) is not ported: "
+                "ROADMAP.md A5, CUDA graphs of phase 2 per bucket")
         if compute_dtype is None:
             compute_dtype = os.environ.get("VITS_TPU_DTYPE", "fp32")
         if compute_dtype not in ("fp32", torch.float32):
@@ -65,14 +92,14 @@ class EmoVITS:
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         if quantize is None:
-            quantize = os.environ.get("VITS_TPU_QUANTIZE", "0") not in ("0", "", "false")
+            quantize = _env_flag("VITS_TPU_QUANTIZE", "0")
         self.quantize = bool(quantize)
         if checkpoint_path is None:
             checkpoint_path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                            "..", "checkpoint", "checkpoint.npz")
-        if not checkpoint_path.endswith(".npz"):
+        if not checkpoint_path.endswith((".npz", ".pth", ".pt")):
             raise ValueError(f"{checkpoint_path}: the port reads the JAX package's .npz "
-                             "checkpoints only")
+                             "checkpoints and reference .pth/.pt ones")
         self.res_root_path = os.path.dirname(checkpoint_path)
         hps = config_mod.get_hparams_from_file(os.path.join(self.res_root_path, "config.json"))
         self.hps = hps
@@ -101,13 +128,25 @@ class EmoVITS:
             self._load_spk_emo_embed(spkid)
 
         # model: the JAX package's parameter tree, weight norm folded
-        tree, _, _ = ckpt_mod.read_checkpoint(checkpoint_path)
-        self.synth = params_from_jax(tree["model"], Synthesizer.from_hps(hps))
+        if checkpoint_path.endswith(".npz"):
+            tree = ckpt_mod.read_checkpoint(checkpoint_path)[0]["model"]
+        else:
+            from vits_tpu_torch.utils import torch_compat
+            tree = torch_compat.load_torch_checkpoint(checkpoint_path,
+                                                      torch_compat.params_template(hps))
+        self.synth = params_from_jax(tree, Synthesizer.from_hps(hps))
         self.synth.to(self.device).eval()
 
-        # pre-sampled noise ring buffer
+        # pre-sampled noise ring buffer; the fused path slices a device copy
         rng = np.random.RandomState(12345)
         self.noise = (rng.randn(self.inter_channels * 4096) * self.noise_scale).astype(np.float32)
+        self._noise_dev = self._tensor(self.noise)
+        self.ring_frames = self.noise.size // self.inter_channels
+        if self.ring_frames < frame_quantum:
+            # the fused budget is capped at whole quanta of the ring; none fits
+            raise ValueError(f"frame_quantum {frame_quantum} exceeds the noise ring's "
+                             f"{self.ring_frames} frames")
+        self._prefer_fused = _env_flag("VITS_TPU_FUSED", "1")
 
         # int8 decoder: a running max-abs over the first q8_calib_requests
         # requests (served by the float decoder), frozen with a margin and
@@ -119,6 +158,7 @@ class EmoVITS:
         self.q8_calib_requests = max(1, int(os.environ.get("VITS_TPU_Q8_CALIB_REQUESTS", "8")))
         self.q8_margin = float(os.environ.get("VITS_TPU_Q8_MARGIN", "1.1"))
         self.q8_min_corr = float(os.environ.get("VITS_TPU_Q8_MIN_CORR", "0.995"))
+        self.inference = self.infer
 
     # ---------------- resources ----------------
     def _load_spkid_mapping(self, mapfn: str):
@@ -259,13 +299,36 @@ class EmoVITS:
         self.dec_q8 = dec_q8
         return True
 
+    def fused_frames(self, x_length: int, duration_rate: float = 1.0) -> int:
+        """The fused path's frame budget for x_length tokens:
+        VITS_TPU_FUSED_FRAMES_PER_TOKEN (default 8) frames a token at the
+        duration rate, in whole frame quanta, at least one quantum and at most
+        the ring's whole quanta."""
+        fpt = float(os.environ.get("VITS_TPU_FUSED_FRAMES_PER_TOKEN", "8"))
+        q = self.frame_quantum
+        budget = self._quantize(max(int(x_length * fpt * duration_rate), q), q)
+        return min(budget, (self.ring_frames // q) * q)
+
     @torch.inference_mode()
     def infer(self, spkid: int, text: np.ndarray, emo=None, *,
               duration_rate: float = 1.0):
         """text: (N, text_channels) float32 -> (wav float32 (T,), emotion
-        vector used). Two-phase: the fused and streaming paths are not
-        ported yet."""
+        vector used). The fused path unless VITS_TPU_FUSED=0, or while the
+        int8 decoder calibrates (its record needs phase 1's outputs)."""
+        if self._prefer_fused and (not self.quantize or self.dec_q8 is not None):
+            return self.infer_fused(spkid, text, emo, duration_rate=duration_rate)
+        return self._infer_two_phase(spkid, text, emo, duration_rate=duration_rate)
+
+    @torch.inference_mode()
+    def _infer_two_phase(self, spkid: int, text: np.ndarray, emo=None, *,
+                         duration_rate: float = 1.0):
         spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
+
+    def _two_phase(self, spkid: int, emo_vec: np.ndarray, text: np.ndarray, x_length: int,
+                   duration_rate: float):
+        """Two-phase synthesis of a resolved request (speaker remapped,
+        emotion vector chosen)."""
         x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
         m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
 
@@ -281,6 +344,67 @@ class EmoVITS:
         wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask, dec_q8=dec_q8)
         wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
         return wav, emo_vec
+
+    @torch.inference_mode()
+    def infer_fused(self, spkid: int, text: np.ndarray, emo=None, *,
+                    duration_rate: float = 1.0):
+        """One-pass batch-1 synthesis (`Synthesizer.inference`) over the
+        frame budget `fused_frames` gives, the prior noise a slice of the
+        device copy of the ring at a host-drawn start. The frame count and
+        the waveform come back to the host in one read. If the durations fill
+        the budget the request is served again by the exact two-phase path,
+        with the speaker and emotion vector resolved here (the JAX package
+        resolves them a second time there, so a chained speaker map moves
+        its fallback to another speaker)."""
+        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
+        max_frames = self.fused_frames(x_length, duration_rate)
+        use_q8 = self.dec_q8 is not None and _env_flag("VITS_TPU_FUSED_Q8", "0")
+        C = self.inter_channels
+        x = np.zeros((1, x_pad, self.text_channels), np.float32)
+        x[0, :x_length] = text[:x_pad]
+        nl = max_frames * C
+        start = np.random.randint(max(self.noise.size - nl, 1))
+        noise = self._noise_dev[start:start + nl].reshape(1, max_frames, C)
+        o, _, y_mask, _ = self.synth.inference(
+            self._tensor(x), self._tensor([x_length], torch.int32),
+            self._tensor(emo_vec[None]), self._tensor([spkid], torch.long),
+            length_scale=duration_rate, max_frames=max_frames, noise=noise,
+            dec_q8=self.dec_q8 if use_q8 else None)
+        # one read back: the frame count rides in front of the waveform
+        out = torch.cat([y_mask.sum().reshape(1), o.reshape(-1)]).cpu().numpy()
+        y_frames = int(out[0])
+        if y_frames >= max_frames:  # the budget clipped the request
+            return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
+        return out[1:1 + y_frames * self.hop_size], emo_vec
+
+    @torch.inference_mode()
+    def infer_stream(self, spkid: int, text: np.ndarray, emo=None, *,
+                     duration_rate: float = 1.0, chunk_frames: Optional[int] = None,
+                     halo: int = 24):
+        """Streaming synthesis: yields float32 waveform chunks whose
+        concatenation is the two-phase output (`_infer_two_phase`, not the
+        fused default, whose noise slice spans the frame budget). Phase 1,
+        the alignment and the latent run once; the float decoder then runs
+        over windows of chunk_frames (default the frame quantum, so the noise
+        slice is the two-phase one) plus `halo` frames on each side, and each
+        window's interior is yielded as soon as it is decoded."""
+        chunk = chunk_frames or self.frame_quantum
+        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
+        m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
+
+        w = np.exp(logw.cpu().numpy().astype(np.float32))[0, :x_length, 0] * duration_rate
+        w_ceil = np.ceil(w)
+        y_length = max(int(w_ceil.sum()), 1)
+        y_pad = self._quantize(y_length, chunk)
+        attn, noise, y_mask = self._alignment(w_ceil, x_length, x_pad, y_length, y_pad)
+
+        z = self.synth.latent(attn, m_p, s_p, g, noise, y_mask)
+        up = self.hop_size
+        for s, lo, hi, keep in stream_windows(y_length, chunk, halo, y_pad):
+            seg = self.synth.dec(z[:, lo:hi], g=g, x_mask=y_mask[:, lo:hi])
+            yield seg[0, (s - lo) * up:(s - lo + keep) * up, 0].cpu().numpy()
 
 
 def main(argv=None):
@@ -307,7 +431,8 @@ def main(argv=None):
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARN)
     os.makedirs(args.outdir, exist_ok=True)
-    model = EmoVITS(args.checkpoint, device=args.device, quantize=args.quantize)
+    model = EmoVITS(args.checkpoint, device=args.device, loglv=args.verbose,
+                    quantize=args.quantize)
 
     features = {}
     with open(args.scpfn) as fid:

@@ -1,7 +1,8 @@
 """The VITS synthesizer (counterpart of vits_tpu/models/synthesizer.py):
 text encoder, duration predictor, posterior encoder, coupling flows, the
-HiFi-GAN decoder in float and int8, the training graph `forward`, and the
-two-phase serving entry points `infer_p1` / `infer_p2` / `quantize_decoder`.
+HiFi-GAN decoder in float and int8, the training graph `forward`, the
+two-phase serving entry points `infer_p1` / `infer_p2` / `quantize_decoder`,
+the one-graph `inference` of the fused serving path, and `stream_decode`.
 
 Tensors are channel-last (B, T, C) at every public function, as in the JAX
 package. The decoder runs unpacked: the JAX package's phase packing is a TPU
@@ -35,11 +36,23 @@ from vits_tpu_torch.nn import quant as Q
 from vits_tpu_torch.nn.core import (Conv1d, ConvTranspose1d, Dense, Embedding, LayerNorm,
                                     dropout, leaky_relu)
 from vits_tpu_torch.ops import mas
-from vits_tpu_torch.ops.seq import gen_sin_table, rand_slice_segments, sequence_mask
+from vits_tpu_torch.ops.seq import (gen_sin_table, generate_path, rand_slice_segments,
+                                    sequence_mask)
 
 
 def _mask(x, m):
     return x if m is None else x * m
+
+
+def stream_windows(n_frames: int, chunk: int, halo: int, limit: Optional[int] = None):
+    """The decode windows of a chunked decode of n_frames frames: for each
+    chunk start s, (s, lo, hi, keep), the window [lo, hi) reaching `halo`
+    frames past the chunk on each side (clipped to [0, limit), limit
+    defaulting to n_frames) and the `keep` frames of it from s on that the
+    chunk contributes."""
+    limit = n_frames if limit is None else limit
+    for s in range(0, n_frames, chunk):
+        yield s, max(0, s - halo), min(limit, s + chunk + halo), min(chunk, n_frames - s)
 
 
 class DurationPredictor(nn.Module):
@@ -476,6 +489,59 @@ class Synthesizer(nn.Module):
         if dec_q8 is not None:
             return self.dec.forward_q8(dec_q8, z, g=g, x_mask=y_mask)
         return self.dec(z, g=g, x_mask=y_mask)
+
+    @torch.no_grad()
+    def inference(self, x, x_lengths, emo, sid, noise_scale: float = 1.0,
+                  length_scale: float = 1.0, max_frames: int = 1000,
+                  noise: Optional[torch.Tensor] = None, dec_q8: Optional[Dict] = None,
+                  generator: Optional[torch.Generator] = None):
+        """One-graph synthesis with a static frame budget (vits_tpu
+        Synthesizer.inference, synthesizer.py:734): text encoder, durations,
+        the alignment built on the device by `generate_path`, the prior
+        expanded, the reversed flows and the float decoder or, with `dec_q8`,
+        the int8 one. x (B, T_x, text_channels), x_lengths (B,) int, emo
+        (B, 1024), sid (B,) int. noise: pre-scaled prior noise (B,
+        max_frames, inter); when None it is drawn from `generator` and scaled
+        by noise_scale. Output lengths are clipped to max_frames. Nothing
+        here reads a value back to the host. Returns (o (B, max_frames * hop,
+        1), attn, y_mask, (z, z_p, m_p_e, logs_p_e))."""
+        g = self.emb_g(sid)
+        x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
+        x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g)
+        logw = self.dp(x_h, x_mask, g=g)
+        w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
+        y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
+        y_lengths = y_lengths.clamp(max=max_frames)
+        y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(x.dtype)
+        attn = generate_path(w_ceil, y_mask * x_mask.transpose(1, 2)).to(x.dtype)
+        m_p_e = torch.einsum("byx,bxc->byc", attn, m_p)
+        logs_p_e = torch.einsum("byx,bxc->byc", attn, logs_p)
+        if noise is None:
+            noise = torch.randn(m_p_e.shape, generator=generator, device=m_p_e.device,
+                                dtype=m_p_e.dtype) * noise_scale
+        z_p = m_p_e + noise.to(m_p_e.dtype) * torch.exp(logs_p_e)
+        z = self.flow(z_p, y_mask, g=g)
+        if dec_q8 is not None:
+            o = self.dec.forward_q8(dec_q8, z * y_mask, g=g, x_mask=y_mask)
+        else:
+            o = self.dec(z * y_mask, g=g, x_mask=y_mask)
+        return o, attn, y_mask, (z, z_p, m_p_e, logs_p_e)
+
+    @torch.no_grad()
+    def stream_decode(self, z, g=None, chunk_frames: int = 128,
+                      halo: int = 24) -> torch.Tensor:
+        """Chunked decode (vits_tpu Synthesizer.stream_decode,
+        synthesizer.py:781): the latent z (B, T, inter) is decoded in windows
+        of chunk_frames plus a receptive-field halo on each side, and only
+        each window's interior is kept, so the concatenation equals a full
+        decode when the halo covers the decoder's receptive radius (~15
+        frames at the base config). Returns (B, T * prod(upsample_rates), 1)."""
+        up = math.prod(self.dec.upsample_rates)
+        outs = []
+        for s, lo, hi, keep in stream_windows(z.shape[1], chunk_frames, halo):
+            seg = self.dec(z[:, lo:hi], g=g)
+            outs.append(seg[:, (s - lo) * up:(s - lo + keep) * up])
+        return torch.cat(outs, dim=1)
 
     @torch.no_grad()
     def quantize_decoder(self, z_cal, g_cal, y_mask=None) -> Dict:

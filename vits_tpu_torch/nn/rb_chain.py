@@ -13,7 +13,8 @@ integer products); on a CUDA tensor it launches the hand-written kernels in
 `vits_tpu_torch/csrc/rb_chain_q8.cu` (int8 `wgmma`, weights staged in
 shared memory by the TMA unit) as `plan` says, or raises: one launch per
 chain where a whole-chain tile fits ("chain"), else two per dilation
-("split"). `counter.launches` counts those launches.
+("split"). `counter.launches` counts those launches; `counter.last` holds
+the last one's M and its `valid` tensor (on the device, not read).
 """
 
 from __future__ import annotations
@@ -385,6 +386,7 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
                                *p.offsets, p.smem, p.grid, stream)
         _raise_on(lib, err, "rb2_chain_q8")
         counter.launches += 1
+        counter.last = (M, valid)
         return out
     gate = torch.empty(B, M, C // 2, dtype=torch.int8, device=dev)
     xq = torch.empty(B, M, C, dtype=torch.int8, device=dev) if n > 1 else gate
@@ -400,6 +402,7 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
                                    off_a, off_bar, smem, stream)
             _raise_on(lib, err, "rb2_split_q8")
             counter.launches += 1
+            counter.last = (M, valid)
         cur = nxt
     return cur
 

@@ -1,5 +1,5 @@
-"""WAV output for the port's CLI (own copy of vits_tpu/utils/audio.py's
-write_wav, 16-bit PCM mono)."""
+"""WAV output for the port's CLI and servers (own copy of
+vits_tpu/utils/audio.py's write_wav, 16-bit PCM mono, and wav_header)."""
 
 from __future__ import annotations
 
@@ -17,3 +17,13 @@ def write_wav(path: str, x: np.ndarray, sample_rate: int):
         f.write(b"fmt " + struct.pack("<IHHIIHH", 16, 1, 1, sample_rate,
                                       sample_rate * 2, 2, 16))
         f.write(b"data" + struct.pack("<I", len(raw)) + raw)
+
+
+def wav_header(data_len: int, sample_rate: int, bits: int = 16, channels: int = 1) -> bytes:
+    """Standalone 44-byte WAV header for responses built from PCM bytes."""
+    byte_rate = sample_rate * channels * bits // 8
+    block_align = channels * bits // 8
+    return (b"RIFF" + struct.pack("<I", 36 + data_len) + b"WAVE"
+            + b"fmt " + struct.pack("<IHHIIHH", 16, 1, channels, sample_rate,
+                                    byte_rate, block_align, bits)
+            + b"data" + struct.pack("<I", data_len))

@@ -26,10 +26,12 @@ build_log: Dict[str, str] = {}  # source name -> nvcc/ptxas output of its build
 
 
 class LaunchCounter:
-    """Kernel launches made through a wrapper (reset and read by callers)."""
+    """Kernel launches made through a wrapper (reset and read by callers),
+    and what the wrapper records of its last launch (`last`, or None)."""
 
     def __init__(self):
         self.launches = 0
+        self.last = None
 
 
 def nvcc_path() -> str:
