@@ -13,16 +13,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 frames, ragged valid length; each with its plan's form, T
                 and launches, kernel ms - device time, from a CUDA graph
                 of 20 calls - against the bound), at a B = 4 ragged case
-                (C = 64, k = 7) and, bit-equal, over the longest fused
-                frame budget (C = 32, k = 11, 4096 x 192 samples, a
-                700-frame request in it), and K2, MAS, against its plain
-                version, bit-exact, at (16, 400, 96) with the training
-                bench's lengths, (32, 1000, 384) (the base config's longest
-                utterance and text), (1, 1000, 1), a t_x == t_y case and
-                (2, 2000, 384), all in the warp form, and (2, 1200, 1100)
-                in the block form; print each case's form, kernel ms
-                (device time, from a CUDA graph of 20 calls), plain ms,
-                bound ms and errors;
+                (C = 64, k = 7) and, bit-equal, at the 12 chains over the
+                longest fused frame budget (4096 frames x the stage's
+                upsampling, a 700-frame request in it);
+     kernels_bf16 - the same cases for K1's bfloat16 form (bf16 weights,
+                calibration and activations), every one bit-equal to the
+                plain version in bf16; its 256-frame times and bound (half
+                the activation bytes);
+     mas      - K2, MAS, against its plain version, bit-exact, at
+                (16, 400, 96) with the training bench's lengths, (32, 1000,
+                384) (the base config's longest utterance and text), (1,
+                1000, 1), a t_x == t_y case and (2, 2000, 384), all in the
+                warp form, and (2, 1200, 1100) in the block form; print each
+                case's form, kernel ms (device time, from a CUDA graph of 20
+                calls), plain ms, bound ms and errors; then on bf16 neg_cent
+                through `maximum_path` at (16, 800, 384) and the step's
+                (16, 400, 96), the path back in bf16, bit-exact;
   3. serving  - write a seeded random base-config checkpoint at full width,
                 serve it two-phase (`_infer_two_phase`) with
                 EmoVITS(device="cuda", quantize=True): 8 calibration
@@ -44,6 +50,18 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   5. stream   - one request through `infer_stream` against the two-phase
                 float output (atol 1e-4); time to the first chunk and to the
                 whole utterance;
+     bf16     - EmoVITS(compute_dtype="bf16", quantize=True) on the same
+                checkpoint: 8 bf16 calibration requests and the int8 gate,
+                then, after an untimed round of each, 6 requests in turns
+                in six modes: the fp32 engine's
+                two-phase int8, and in bf16 two-phase float, fused float,
+                two-phase int8 and fused int8 (K1's bf16 form, its launches
+                = the plans, its last launch over the decoded M with the
+                request's frames valid; none of the f32 form) and
+                streaming; latency per mode, int8-vs-float correlation per
+                request (two-phase and fused), the stream against two-phase;
+                then one request decoded in bf16 and in fp32 from the fp32
+                alignment: their waveform correlation;
   6. servers  - TTServer(port=0, device="cuda", quantize=True) on the same
                 checkpoint, 2 calibration requests, then fused int8 requests
                 through `protocol.synthesize` (K1 must launch on each), one
@@ -53,16 +71,23 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   7. training - the base config's mel/MPD GAN step at full width (seeded
                 random weights with weight norm, AdamW from
                 build_optimizers), on the training bench's synthetic batch
-                (B 16, T_x 96, 400 spec frames, spec shipped): 1 warm-up and
-                5 timed steps, each launching K2 exactly once, with finite
-                losses and moved parameters; print step ms, audio-s/s and
-                peak memory; then one step on the card against the same step
-                on the CPU (B = 2, same weights and noise, dropout off): the
-                losses agree and the MAS paths are equal;
+                (B 16, T_x 96, 400 spec frames, spec shipped), in both
+                precisions in turns from the same weights: the configured
+                bf16 step (configs/base.json's bf16_run) and the fp32 one,
+                1 warm-up and 5 timed steps each, each step launching K2
+                exactly once, with finite losses and moved parameters; print
+                step ms, audio-s/s and peak memory of each; then one step of
+                each precision on the card against the same step on the CPU
+                (B = 2, same weights and noise, dropout off): fp32 losses
+                within 1e-3 and the MAS paths equal; bf16: the losses that
+                do not depend on the MAS path (D, GAN, feature, mel, D's
+                gradient norm) within 3e-2, the path's moved cells and the
+                other losses printed (bf16 neg_cent's rounding moves it);
   8. card     - print the card's name and power limit.
 Each phase prints the seconds it took. K1's launches in the kernels line are
 those of the serving, fused and server phases, each read with the counter set
-to 0 just before the path runs and read just after.
+to 0 just before the path runs and read just after; its bf16 form's those of
+the bf16 phase, and K2's those of both precisions' training steps.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -90,17 +115,29 @@ TRAIN_STEPS = 5                            # timed, after 1 warm-up step
 # card vs CPU on one training step (B = 2): fp32 on both, TF32 off, but
 # cuDNN and the CPU's convolutions sum in other orders through ~60 layers
 LOSS_RTOL, LOSS_ATOL = 1e-3, 1e-5
+# the same check of the bf16 step's path-free losses: cuDNN and the CPU round
+# bf16 at other places through the decoder and the MPD, as the two packages
+# do (tests/test_torch_bf16_train.py: the JAX and port bf16 steps at TINY
+# differ by 0.5% in the mel loss)
+BF16_LOSS_RTOL, BF16_LOSS_ATOL = 3e-2, 1e-3
 CHAIN_FRAMES = 256    # T_y of the kernel check: M = 256 * (8, 48, 96, 192)
 N_CALIB = 8
 N_INT8 = 4
 N_FUSED = 8           # requests served in the three modes of the fused phase, in turns
+N_BF16 = 6            # ... and in the six modes of the bf16 phase
 RING_FRAMES = 4096    # the noise ring's frames: the longest fused frame budget
+BF16_MAS_SHAPES = ((16, 800, 384), (TRAIN_B, TRAIN_TY, TRAIN_TX))  # K2 on bf16 neg_cent
 SERVER_CALIB = 2      # the socket server's int8 calibration requests
 SERVER_INT8 = 3       # ... and its requests after the freeze
 # each int8 request's waveform against the float decode of the same request:
 # the JAX package's bench guard (bench.py); the gate's stricter 0.995 applies
 # to the freezing request, whose activations the scales were calibrated on
 MIN_REQUEST_CORR = 0.98
+# the bf16 stream against the bf16 two-phase float decode of the same request:
+# the same function, but cuDNN picks its algorithms per window shape, and in
+# bf16 another summation order moves each conv output by up to an ulp of
+# 2^-8 (the fp32 stream holds to 1e-4)
+BF16_STREAM_CORR = 0.995
 
 
 def log(*a):
@@ -159,18 +196,20 @@ def phase_build():
     return sources
 
 
-def k1_case(dev, gen, C, k, dil, gin, lens, M):
-    """A seeded random ResBlock2 at (C, k, dil), calibrated on its own input
-    and quantized: (qp, x (B, M, C) masked past each length, gs, valid)."""
+def k1_case(dev, gen, C, k, dil, gin, lens, M, dtype=torch.float32):
+    """A seeded random ResBlock2 at (C, k, dil) in `dtype`, calibrated on its
+    own input and quantized from its weights in that dtype, as serving in
+    that dtype quantizes: (qp, x (B, M, C) masked past each length, gs,
+    valid)."""
     from vits_tpu_torch.models.modules import ResBlock2
     from vits_tpu_torch.nn.core import init_weights
-    rb = init_weights(ResBlock2(C, k, tuple(dil), gin), gen).to(dev).eval()
+    rb = init_weights(ResBlock2(C, k, tuple(dil), gin), gen).to(dev, dtype).eval()
     B = len(lens)
     valid = torch.tensor(lens, dtype=torch.int32, device=dev)
-    x = torch.randn(B, M, C, generator=gen).to(dev)
-    mask = (torch.arange(M, device=dev)[None, :] < valid[:, None]).float()[..., None]
+    x = torch.randn(B, M, C, generator=gen).to(dev, dtype)
+    mask = (torch.arange(M, device=dev)[None, :] < valid[:, None]).to(dtype)[..., None]
     x = x * mask
-    g = torch.randn(B, gin, generator=gen).to(dev)
+    g = torch.randn(B, gin, generator=gen).to(dev, dtype)
     with torch.no_grad():
         rec = {}
         rb(x, g, x_mask=mask, record=rec)
@@ -195,19 +234,22 @@ def k1_shapes():
     return out, m.gin_channels
 
 
-def phase_kernels(dev):
-    """K1 against its plain version at the 12 base-config chain shapes, at
-    one B = 4 ragged case (C = 64, k = 7) that runs the batch dimension of
-    the whole-chain tiling, and at the 12 chains over the longest fused frame
-    budget (RING_FRAMES frames, so a persistent block works through several
-    tiles) with a 700-frame request in it, bit-equal."""
+def phase_kernels(dev, dtype=torch.float32):
+    """K1's form for `dtype` against its plain version at the 12 base-config
+    chain shapes, at one B = 4 ragged case (C = 64, k = 7) that runs the
+    batch dimension of the whole-chain tiling, and at the 12 chains over the
+    longest fused frame budget (RING_FRAMES frames, so a persistent block
+    works through several tiles) with a 700-frame request in it, bit-equal.
+    The bfloat16 form is bit-equal at every case."""
     from vits_tpu_torch.nn import rb_chain
 
+    bf16 = dtype == torch.bfloat16
+    name = "rb2_chain_q8 bf16" if bf16 else "rb2_chain_q8"
     shapes, gin = k1_shapes()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows, worst = [], 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(SEED + bf16)
     M4 = CHAIN_FRAMES * 48
     # the batch case; and each chain over the fused budget: the masked tail
     # the fused path gives K1 (valid = the request's samples, M the budget's)
@@ -217,13 +259,15 @@ def phase_kernels(dev):
     cases = [(C, k, dil, M, [v], False) for C, k, dil, M, v in shapes] + extra
     for n_case, (C, k, dil, M, lens, bit_equal) in enumerate(cases):
         B = len(lens)
-        qp, x, gs, valid = k1_case(dev, gen, C, k, dil, gin, lens, M)
+        bit_equal = bit_equal or bf16
+        qp, x, gs, valid = k1_case(dev, gen, C, k, dil, gin, lens, M, dtype)
         out = rb_chain.chain_q8_cuda(qp, x, gs, valid)
         ref = rb_chain.chain_q8_plain(qp, x, gs, valid)
         torch.cuda.synchronize()
-        if not torch.isfinite(out).all():
-            raise RuntimeError(f"K1 B={B} C={C} k={k}: non-finite output")
-        diff = (out - ref).abs()
+        if not torch.isfinite(out).all() or out.dtype != dtype or ref.dtype != dtype:
+            raise RuntimeError(f"{name} B={B} C={C} k={k}: non-finite output or a dtype "
+                               f"other than {dtype} ({out.dtype}, plain {ref.dtype})")
+        diff = (out - ref).float().abs()
         scale = max(1.0, float(ref.abs().max()))
         err = float(diff.max())
         off = float((diff > 1e-3 * float(ref.abs().max())).float().mean())
@@ -234,7 +278,7 @@ def phase_kernels(dev):
                  f"{', bit-equal required' if bit_equal else ''})  off>1e-3*max "
                  f"{100 * off:.3f}%  {'OK' if ok else 'FAIL'}")
         if n_case >= len(shapes):  # checked, not part of the 256-frame request
-            log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:6d} valid={lens}: "
+            log(f"[kernels] {name} B={B} C={C:3d} k={k:2d} M={M:6d} valid={lens}: "
                 f"{p.form} T={p.T} grid {p.grid} launches {p.launches}: {check}")
             rows.append(dict(B=B, C=C, k=k, M=M, ok=ok, extra_case=True))
             del x, qp, out, ref, diff
@@ -242,10 +286,10 @@ def phase_kernels(dev):
         ms = graph_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid))
         call_ms = cuda_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid), iters=20)
         plain_ms = cuda_ms(lambda: rb_chain.chain_q8_plain(qp, x, gs, valid), iters=3, warmup=1)
-        ops, nbytes = rb_chain.chain_ops_bytes(B, M, C, k, len(dil))
+        ops, nbytes = rb_chain.chain_ops_bytes(B, M, C, k, len(dil), x.element_size())
         bound = max(ops / INT8_PEAK, nbytes / HBM_BW) * 1e3
         by = "ops" if ops / INT8_PEAK > nbytes / HBM_BW else "bytes"
-        log(f"[kernels] rb2_chain_q8 B={B} C={C:3d} k={k:2d} M={M:5d} valid={lens[0]}: "
+        log(f"[kernels] {name} B={B} C={C:3d} k={k:2d} M={M:5d} valid={lens[0]}: "
             f"{p.form} T={p.T} launches {p.launches}: kernel {ms:.4f} ms (per eager call "
             f"{call_ms:.4f} ms)  plain "
             f"{plain_ms:.4f} ms  bound {bound:.4f} ms ({by}; {100 * bound / ms:.1f}% of it)  "
@@ -262,8 +306,9 @@ def phase_kernels(dev):
     bad = [r for r in rows if not r["ok"]]
     rows = [r for r in rows if not r.get("extra_case")]
     if bad:
-        raise RuntimeError(f"K1 disagrees with its plain version at {len(bad)} shape(s): {bad}")
-    log(f"[kernels] rb2_chain_q8: all {len(rows)} shapes, the B = 4 case and the "
+        raise RuntimeError(f"{name} disagrees with its plain version at {len(bad)} shape(s): "
+                           f"{bad}")
+    log(f"[kernels] {name}: all {len(rows)} shapes, the B = 4 case and the "
         f"{len(shapes)} chains over the {RING_FRAMES}-frame fused budget agree; the "
         f"12 chains of a {CHAIN_FRAMES}-frame request: kernel {tot['ms']:.4f} ms, plain "
         f"{tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
@@ -320,10 +365,34 @@ def phase_mas(dev):
         rows.append(dict(name=name, shape=(B, T_y, T_x), form=p.form, ms=ms, call_ms=call_ms,
                          plain_ms=plain_ms, bound_ms=bound, max_abs_err=err, ok=equal))
         del neg, out, ref
+    # bf16 neg_cent, as the bf16 training step gives it: through the entry
+    # point (cast to f32 for the kernel, the path back in bf16) against the
+    # plain path on the same values
+    for B, T_y, T_x in BF16_MAS_SHAPES:
+        t_ys = [T_y - 13 * (i % 4) for i in range(B)]
+        t_xs = [T_x - i % 7 for i in range(B)]
+        neg, ty, tx = _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs)
+        mask = ((torch.arange(T_y, device=dev)[None, :, None] < ty[:, None, None])
+                & (torch.arange(T_x, device=dev)[None, None, :] < tx[:, None, None]))
+        neg = neg.to(torch.bfloat16)
+        before = mas.counter.launches
+        out = mas.maximum_path(neg, mask.to(torch.bfloat16))
+        ref = mas.maximum_path_plain(neg * mask, ty, tx)
+        torch.cuda.synchronize()
+        equal = (mas.counter.launches - before == 1 and out.dtype == torch.bfloat16
+                 and torch.equal(out, ref) and torch.equal(out.float().sum(dim=(1, 2)),
+                                                           ty.float()))
+        err = float((out.float() - ref.float()).abs().max())
+        log(f"[kernels] mas ({B}, {T_y}, {T_x}) bf16 neg_cent: form {mas.plan(B, T_y, T_x).form}, "
+            f"path in {out.dtype}, max_abs_err {err:.1e} (bit-exact required)  "
+            f"{'OK' if equal else 'FAIL'}")
+        rows.append(dict(name="bf16", shape=(B, T_y, T_x), max_abs_err=err, ok=equal,
+                         extra_case=True))
+        del neg, out, ref
     bad = [r for r in rows if not r["ok"]]
     if bad:
         raise RuntimeError(f"K2 differs from its plain version at {len(bad)} shape(s): {bad}")
-    return rows
+    return [r for r in rows if not r.get("extra_case")], max(r["max_abs_err"] for r in rows)
 
 
 def _bench_batch(hps, dev, B, T_x, T_y):
@@ -348,107 +417,175 @@ def _finite(metrics) -> bool:
                 .isfinite().all())
 
 
-def phase_training(dev):
-    """The mel/MPD step at full base width; K2 launches once per step."""
-    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
-    from vits_tpu_torch.ops import mas
-    from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
-                                           count_params, init_state)
-    from vits_tpu_torch.train.step import TrainStepConfig, make_train_step
+def _state_bytes(state) -> int:
+    """Bytes a training state keeps on the device between steps: the
+    parameters of both models and their optimizer states."""
+    n = 0
+    for mod, opt in (("gen", "gen_opt"), ("disc", "disc_opt")):
+        n += sum(p.numel() * p.element_size() for p in state[mod].parameters())
+        n += sum(t.numel() * t.element_size() for st in state[opt].state.values()
+                 for t in st.values() if torch.is_tensor(t) and t.is_cuda)
+    return n
 
-    hps = get_hparams_from_file(default_config_path("base"))
-    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
-    t0 = time.perf_counter()
-    synth, disc = build_models(hps)
-    gen_opt, disc_opt = build_optimizers(hps)
-    state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=SEED, device=dev)
-    m = hps.model
-    log(f"[training] base config at full width (gin {m.gin_channels}, "
-        f"{hps.data.n_speakers} speakers, posterior {m.n_layers_q} layers, decoder "
-        f"{m.upsample_initial_channel}->{m.upsample_initial_channel // 16} channels, MPD "
-        f"periods 2/3/5/7/11): G {count_params(synth)} parameters (+ enc_q and weight-norm "
-        f"gains: {count_params(synth, exclude=())}), D {count_params(disc, exclude=())}; "
-        f"built and initialised in {time.perf_counter() - t0:.1f} s")
-    step = make_train_step(TrainStepConfig.from_hps(hps))
-    batch = _bench_batch(hps, dev, B, T_x, T_y)
-    hop, sr = hps.data.hop_length, hps.data.sampling_rate
-    audio_s = float(batch["spec_lengths"].sum()) * hop / sr
-    noise_gen = torch.Generator(device=dev).manual_seed(SEED)
-    lr = hps.train.learning_rate
-    times = []
-    mas.counter.launches = 0                 # main path starts here
-    for i in range(1 + TRAIN_STEPS):
-        noise = synth.draw_noise(B, T_x, T_y, noise_gen)
-        params = {k: [p.detach().clone() for p in mod.parameters()]
-                  for k, mod in (("G", synth), ("D", disc))}
-        if i == 1:
-            torch.cuda.reset_peak_memory_stats()
-        before = mas.counter.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch, noise, lr, lr, align_noise_at(hps, state["step"]))
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
-        launched = mas.counter.launches - before
-        moved = {k: any(not torch.equal(a, p) for a, p in zip(params[k], mod.parameters()))
-                 for k, mod in (("G", synth), ("D", disc))}
-        if launched != 1:
-            raise RuntimeError(f"training step {i}: K2 launched {launched} times, expected 1")
-        if not _finite(metrics):
-            raise RuntimeError(f"training step {i}: non-finite losses "
-                               f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
-        if not all(moved.values()):
-            raise RuntimeError(f"training step {i}: parameters did not change: {moved}")
-        if i:
-            times.append(ms)
-        log(f"[training] step {i} {'warm-up' if i == 0 else 'timed  '}: {ms:.1f} ms, K2 "
-            f"launches {launched}, loss_g_total {float(metrics['loss_g_total']):.4f}, "
-            f"loss_disc {float(metrics['loss_disc']):.4f}, loss_mel "
-            f"{float(metrics['loss_mel']):.4f}, grad_norm_g {float(metrics['grad_norm_g']):.4f}")
-        del params
-    main_launches = mas.counter.launches     # main path ends here
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    med = float(np.median(times))
-    log(f"[training] {TRAIN_STEPS} timed steps: median {med:.1f} ms (min {min(times):.1f}, "
-        f"max {max(times):.1f}), {audio_s / (med / 1e3):.1f} audio-s/s "
-        f"({audio_s:.2f} audio s per step), peak memory {peak:.2f} GiB; K2 launches on "
-        f"the main path {main_launches} in {1 + TRAIN_STEPS} steps")
 
-    # one step on the card against the same step on the CPU: B = 2, the same
-    # weights and noise, dropout off (eval mode) so both run one function
-    small = {k: v[:2] for k, v in batch.items()}
-    noise = {k: v[:2] for k, v in synth.draw_noise(B, T_x, T_y, noise_gen).items()}
+LOSS_KEYS = ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_dur", "loss_kl",
+             "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g")
+# the step's numbers that do not depend on the MAS path: the decoder decodes a
+# slice of the posterior latent, and D sees only that and the waveform
+PATH_FREE = ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "grad_norm_d")
+
+
+def _card_vs_cpu(dev, step, opts, synth, disc, batch, noise, lr, dtype):
+    """One step at B = 2 on the card and on the CPU from the same weights and
+    noise, dropout off (eval mode) so both run one function. Returns (cells
+    on the card's MAS path, cells where the CPU's differs, {loss: (card,
+    CPU)}, the CPU's seconds)."""
+    from vits_tpu_torch.train.step import cast_call
+    gen_opt, disc_opt = opts
     runs = {}
     for where in ("cuda", "cpu"):
         d = dev if where == "cuda" else torch.device("cpu")
         g_m = copy.deepcopy(synth).to(d).eval()
         d_m = copy.deepcopy(disc).to(d).eval()
-        b = {k: v.to(d) for k, v in small.items()}
+        b = {k: v.to(d) for k, v in batch.items()}
         nz = {k: v.to(d) for k, v in noise.items()}
         with torch.no_grad():
-            attn = g_m(b["x"], b["x_lengths"], b["spec"], b["spec_lengths"], b["emo"],
-                       b["sid"], nz, align_noise=0.01)["attn"].cpu()
+            attn = cast_call(g_m, dtype, b["x"].to(dtype), b["x_lengths"], b["spec"].to(dtype),
+                             b["spec_lengths"], b["emo"].to(dtype), b["sid"], nz,
+                             align_noise=0.01)["attn"].float().cpu()
         st = {"gen": g_m, "disc": d_m, "gen_opt": gen_opt.init(g_m.parameters()),
               "disc_opt": disc_opt.init(d_m.parameters()), "step": 0, "rng": None}
         t0 = time.perf_counter()
         _, mt = step(st, b, nz, lr, lr, 0.01)
-        runs[where] = (attn, {k: v.cpu() for k, v in mt.items()}, time.perf_counter() - t0)
+        runs[where] = (attn, {k: v.float().cpu() for k, v in mt.items()},
+                       time.perf_counter() - t0)
         del g_m, d_m, st
     (a_gpu, m_gpu, _), (a_cpu, m_cpu, cpu_s) = runs["cuda"], runs["cpu"]
-    worst = {}
-    for k in ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_dur", "loss_kl",
-              "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g"):
-        a, c = float(m_gpu[k]), float(m_cpu[k])
-        worst[k] = abs(a - c) / max(abs(c), LOSS_ATOL / LOSS_RTOL)
-        if abs(a - c) > LOSS_ATOL + LOSS_RTOL * abs(c):
-            raise RuntimeError(f"card vs CPU step: {k} {a} vs {c}")
-    if not torch.equal(a_gpu, a_cpu):
-        raise RuntimeError("card vs CPU step: the MAS paths differ "
-                           f"({int((a_gpu != a_cpu).sum())} cells)")
-    log(f"[training] card vs CPU, one step at B = 2 (CPU {cpu_s:.1f} s): MAS paths equal "
-        f"({int(a_gpu.sum())} cells on the path); largest relative loss difference "
-        f"{max(worst.values()):.2e} ({max(worst, key=worst.get)}; tol {LOSS_RTOL:.0e})")
-    return main_launches, med, audio_s, peak
+    return (int(a_gpu.sum()), int((a_gpu != a_cpu).sum()),
+            {k: (float(m_gpu[k]), float(m_cpu[k])) for k in LOSS_KEYS}, cpu_s)
+
+
+def phase_training(dev):
+    """The base config's mel/MPD step at full width in both precisions, in
+    turns: the configured bf16 step (train.bf16_run) and the fp32 one, each
+    from the same seeded weights; K2 launches once per step."""
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.ops import mas
+    from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
+                                           build_step, count_params, init_state)
+    from vits_tpu_torch.train.step import TrainStepConfig
+
+    hps = get_hparams_from_file(default_config_path("base"))
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    if TrainStepConfig.from_hps(hps).compute_dtype != torch.bfloat16:
+        raise RuntimeError("configs/base.json's bf16_run did not give a bf16 step")
+    t0 = time.perf_counter()
+    runs = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", None)):
+        synth, disc = build_models(hps)
+        gen_opt, disc_opt = build_optimizers(hps)
+        state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=SEED, device=dev)
+        runs[name] = {"state": state, "step": build_step(hps, dtype), "times": [], "peak": 0.0,
+                      "work": 0.0}
+    synth = runs["fp32"]["state"]["gen"]
+    m = hps.model
+    log(f"[training] base config at full width (gin {m.gin_channels}, "
+        f"{hps.data.n_speakers} speakers, posterior {m.n_layers_q} layers, decoder "
+        f"{m.upsample_initial_channel}->{m.upsample_initial_channel // 16} channels, MPD "
+        f"periods 2/3/5/7/11): G {count_params(synth)} parameters (+ enc_q and weight-norm "
+        f"gains: {count_params(synth, exclude=())}), D "
+        f"{count_params(runs['fp32']['state']['disc'], exclude=())}; two states (fp32 and the "
+        f"configured bf16 step) built and initialised in {time.perf_counter() - t0:.1f} s")
+    batch = _bench_batch(hps, dev, B, T_x, T_y)
+    hop, sr = hps.data.hop_length, hps.data.sampling_rate
+    audio_s = float(batch["spec_lengths"].sum()) * hop / sr
+    noise_gen = torch.Generator(device=dev).manual_seed(SEED)
+    lr = hps.train.learning_rate
+    mas.counter.launches = 0                 # main path starts here
+    for i in range(1 + TRAIN_STEPS):
+        noise = synth.draw_noise(B, T_x, T_y, noise_gen)
+        for name, run in runs.items():
+            state = run["state"]
+            params = {k: [p.detach().clone() for p in state[k].parameters()]
+                      for k in ("gen", "disc")}
+            before = mas.counter.launches
+            torch.cuda.synchronize()
+            start_bytes = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            state, metrics = run["step"](state, batch, noise, lr, lr,
+                                         align_noise_at(hps, state["step"]))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launched = mas.counter.launches - before
+            moved = {k: any(not torch.equal(a, p) for a, p in zip(params[k],
+                                                                  state[k].parameters()))
+                     for k in ("gen", "disc")}
+            if launched != 1:
+                raise RuntimeError(f"{name} training step {i}: K2 launched {launched} times, "
+                                   f"expected 1")
+            if not _finite(metrics):
+                raise RuntimeError(f"{name} training step {i}: non-finite losses "
+                                   f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
+            if not all(moved.values()):
+                raise RuntimeError(f"{name} training step {i}: parameters did not change: "
+                                   f"{moved}")
+            run["resident"] = _state_bytes(state) / 2 ** 30
+            if i:
+                run["times"].append(ms)
+                run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated() / 2 ** 30)
+                run["work"] = max(run["work"], (torch.cuda.max_memory_allocated()
+                                                - start_bytes) / 2 ** 30)
+            log(f"[training] {name} step {i} {'warm-up' if i == 0 else 'timed  '}: {ms:.1f} ms, "
+                f"K2 launches {launched}, loss_g_total {float(metrics['loss_g_total']):.4f}, "
+                f"loss_disc {float(metrics['loss_disc']):.4f}, loss_mel "
+                f"{float(metrics['loss_mel']):.4f}, grad_norm_g "
+                f"{float(metrics['grad_norm_g']):.4f} (losses finite)")
+            del params
+    main_launches = mas.counter.launches     # main path ends here
+    med = {}
+    for name, run in runs.items():
+        t = run["times"]
+        med[name] = float(np.median(t))
+        log(f"[training] {name}: {TRAIN_STEPS} timed steps, median {med[name]:.1f} ms (min "
+            f"{min(t):.1f}, max {max(t):.1f}), {audio_s / (med[name] / 1e3):.1f} audio-s/s "
+            f"({audio_s:.2f} audio s per step); peak memory {run['peak']:.2f} GiB with both "
+            f"states resident, the step's own {run['resident'] + run['work']:.2f} GiB (its "
+            f"state {run['resident']:.2f} + the step's working memory {run['work']:.2f})")
+    log(f"[training] bf16 against fp32, in turns: median {med['bf16']:.1f} against "
+        f"{med['fp32']:.1f} ms ({med['fp32'] / med['bf16']:.2f}x); K2 launches on the main "
+        f"path {main_launches} in {2 * (1 + TRAIN_STEPS)} steps")
+
+    # one step of each precision on the card against the same step on the
+    # CPU: B = 2, the same weights (the fp32 run's) and noise. In fp32 every
+    # loss holds and the paths are equal. In bf16, neg_cent is a sum over 192
+    # channels of magnitude ~1e2-1e3 at these random weights, where bf16's
+    # step is 0.5-8, so cuBLAS's and the CPU's roundings of its einsums (the
+    # JAX package computes it in bf16 too) move the path: the numbers that
+    # do not depend on it are held, the others are printed
+    small = {k: v[:2] for k, v in batch.items()}
+    noise = {k: v[:2] for k, v in synth.draw_noise(B, T_x, T_y, noise_gen).items()}
+    disc = runs["fp32"]["state"]["disc"]
+    for name, dtype, rtol, atol, keys in (
+            ("fp32", torch.float32, LOSS_RTOL, LOSS_ATOL, LOSS_KEYS),
+            ("bf16", torch.bfloat16, BF16_LOSS_RTOL, BF16_LOSS_ATOL, PATH_FREE)):
+        cells, differ, losses, cpu_s = _card_vs_cpu(
+            dev, runs[name]["step"], build_optimizers(hps), synth, disc, small, noise, lr, dtype)
+        rel = {k: abs(a - c) / max(abs(c), atol / rtol) for k, (a, c) in losses.items()}
+        bad = [k for k in keys if not abs(losses[k][0] - losses[k][1])
+               <= atol + rtol * abs(losses[k][1])]
+        if bad or (name == "fp32" and differ):
+            raise RuntimeError(f"card vs CPU {name} step: {bad} outside rtol {rtol} "
+                               f"({ {k: losses[k] for k in bad} }), {differ} path cells differ")
+        worst = max(keys, key=rel.get)
+        held = "the losses" if name == "fp32" else "the path-free losses " + "/".join(keys)
+        log(f"[training] {name} step, card vs CPU at B = 2 (CPU {cpu_s:.1f} s): MAS paths "
+            f"{'equal' if not differ else f'differ in {differ} cells'} ({cells} cells on the "
+            f"card's path); largest relative difference of {held} {rel[worst]:.2e} ({worst}; "
+            f"tol {rtol:.0e})"
+            + ("" if name == "fp32" else "; path-dependent: " + ", ".join(
+                f"{k} {rel[k]:.2e}" for k in LOSS_KEYS if k not in keys)))
+    return main_launches, med, audio_s, {k: r["peak"] for k, r in runs.items()}
 
 
 def _write_checkpoint(dirpath, hps_dict, dev_gen_seed):
@@ -481,9 +618,10 @@ def _requests(model, n, rng, dev):
         spk = int(rng.randint(0, model.num_speaker))
         with torch.inference_mode():
             _, _, logw, _ = model.synth.infer_p1(
-                torch.from_numpy(text[None]).to(dev), torch.from_numpy(emo[None]).to(dev),
+                torch.from_numpy(text[None]).to(dev, model.compute_dtype),
+                torch.from_numpy(emo[None]).to(dev, model.compute_dtype),
                 torch.tensor([spk], device=dev))
-        base = float(torch.exp(logw).sum())
+        base = float(torch.exp(logw.float()).sum())
         rate = target / base
         out.append((spk, text, emo, rate))
     return out
@@ -808,6 +946,175 @@ def phase_stream(dev, model, req):
     return times, ms_2p
 
 
+BF16_MODES = ("fp32 two-phase int8", "bf16 two-phase float", "bf16 fused float",
+              "bf16 two-phase int8", "bf16 fused int8", "bf16 stream")
+
+
+def _serve(model, mode, spk, text, emo, rate):
+    """One request in one of BF16_MODES: (wav, ms, first-chunk ms or None)."""
+    _env(VITS_TPU_FUSED_Q8="1" if mode.endswith("fused int8") else "0")
+    if mode.endswith("stream"):
+        chunks, first = [], None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for chunk in model.infer_stream(spk, text, emo, duration_rate=rate):
+            first = first or (time.perf_counter() - t0) * 1e3
+            chunks.append(chunk)
+        return np.concatenate(chunks), (time.perf_counter() - t0) * 1e3, first
+    if "fused" in mode:
+        fn = model.infer_fused
+    else:
+        fn = model._infer_two_phase
+        if mode.endswith("float"):  # the float decoder of an int8 engine
+            model.quantize, dec_q8, model.dec_q8 = False, model.dec_q8, None
+    try:
+        (wav, _), ms = _timed_call(fn, spk, text, emo, duration_rate=rate)
+    finally:
+        if mode.endswith("two-phase float"):
+            model.quantize, model.dec_q8 = True, dec_q8
+    return wav, ms, None
+
+
+def phase_bf16(dev, model32, ckpt):
+    """bf16 serving at full width: EmoVITS(compute_dtype="bf16",
+    quantize=True) on the same checkpoint calibrates its int8 decoder on
+    N_CALIB two-phase bf16 requests, then N_BF16 requests of 256-2048 frames
+    run in turns in BF16_MODES, the fp32 engine's two-phase int8 first, after
+    one untimed round of them all. Checks per request: every bf16 path serves the
+    request's bf16 frames (the fused ones below their budget); K1's float32
+    form launches only in the fp32 mode and its bf16 form only in the bf16
+    int8 modes, as many times as the plans of the decoder's chains (at the
+    frames' bucket two-phase, at the budget fused), its last launch over that
+    M with the request's frames valid; int8 against float above
+    MIN_REQUEST_CORR, two-phase and fused; the stream against the two-phase
+    float output. Then one request decoded by both engines from the fp32
+    engine's alignment: the bf16-vs-fp32 waveform correlation."""
+    from vits_tpu_torch.infer import EmoVITS
+    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.ops.seq import infer_path
+
+    m, hop, sr = model32.hps.model, model32.hop_size, model32.sampling_rate
+    up = int(np.prod(m.upsample_rates))
+    saved = _env(VITS_TPU_FUSED_Q8=None, VITS_TPU_FUSED_FRAMES_PER_TOKEN=None,
+                 VITS_TPU_Q8_CALIB_REQUESTS=str(N_CALIB), VITS_TPU_DTYPE=None)
+    t0 = time.perf_counter()
+    model = EmoVITS(ckpt, device=str(dev), compute_dtype="bf16", quantize=True)
+    if model.synth.dec.conv_pre.weight.dtype != torch.bfloat16:
+        raise RuntimeError("the bf16 engine's weights are not bf16")
+    reqs = _requests(model32, N_CALIB + N_BF16, np.random.RandomState(SEED + 700), dev)
+    for i, (spk, text, emo, rate) in enumerate(reqs[:N_CALIB]):
+        np.random.seed(SEED + 700 + i)
+        model._infer_two_phase(spk, text, emo, duration_rate=rate)
+    if model.dec_q8 is None:
+        raise RuntimeError(f"the bf16 int8 decoder failed its correlation gate "
+                           f"(corr {model.q8_corr}); K1's bf16 form would never run")
+    log(f"[bf16] engine loaded, {N_CALIB} bf16 calibration requests served, int8 gate passed "
+        f"(corr {model.q8_corr:.6f}) in {time.perf_counter() - t0:.1f} s")
+    engines = {mode: model32 if mode.startswith("fp32") else model for mode in BF16_MODES}
+    # one untimed round of every request in every mode: each request's frame
+    # bucket (and its last stream window) is a shape new to this process,
+    # whose first cuDNN convolutions cost ~150 ms of setup in either precision
+    warm = {mode: 0.0 for mode in BF16_MODES}
+    for i, (spk, text, emo, rate) in enumerate(reqs[N_CALIB:]):
+        for mode in BF16_MODES:
+            np.random.seed(SEED + 800 + i)
+            warm[mode] += _serve(engines[mode], mode, spk, text, emo, rate)[1] / N_BF16
+    log("[bf16] untimed round (cold shapes), mean ms: "
+        + ", ".join(f"{mode} {ms:.2f}" for mode, ms in warm.items()))
+    lat = {mode: [] for mode in BF16_MODES}
+    first_ms, audio_s = [], 0.0
+    rb_chain.counter.launches = rb_chain.counter_bf16.launches = 0  # main path starts here
+    for i, (spk, text, emo, rate) in enumerate(reqs[N_CALIB:]):
+        budget = model.fused_frames(len(text), rate)
+        out = {}
+        for mode in BF16_MODES:
+            before = (rb_chain.counter.launches, rb_chain.counter_bf16.launches)
+            rb_chain.counter_bf16.last = None
+            np.random.seed(SEED + 800 + i)
+            wav, ms, first = _serve(engines[mode], mode, spk, text, emo, rate)
+            out[mode] = (wav, ms, rb_chain.counter.launches - before[0],
+                         rb_chain.counter_bf16.launches - before[1], rb_chain.counter_bf16.last)
+            lat[mode].append(ms)
+            if first is not None:
+                first_ms.append(first)
+        # the frames each path decodes: the fused pass takes its durations'
+        # exp in bf16 on the device, two-phase in f32 on the host (as the JAX
+        # engine does), so a ceil may land on another frame
+        frames32 = len(out["fp32 two-phase int8"][0]) // hop
+        frames = len(out["bf16 two-phase float"][0]) // hop
+        frames_f = len(out["bf16 fused float"][0]) // hop
+        n_of = {mode: frames_f if "fused" in mode else frames for mode in BF16_MODES}
+        n_of["fp32 two-phase int8"] = frames32
+        audio_s += frames * hop / sr
+        if frames_f >= budget:
+            raise RuntimeError(f"bf16 phase, request {i}: {frames_f} frames fill the budget "
+                               f"{budget}")
+        want_m = {"bf16 two-phase int8": (model._quantize(frames, model.frame_quantum) * up,
+                                          frames * up),
+                  "bf16 fused int8": (budget * up, frames_f * up)}
+        for mode, (wav, ms, l32, l16, last) in out.items():
+            n = n_of[mode]
+            if len(wav) != n * hop or not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1.0:
+                raise RuntimeError(f"bf16 phase, request {i}, {mode}: {len(wav)} samples "
+                                   f"(expected {n * hop}), or a value not finite or past 1")
+            want32 = k1_launches_per_decode(m, frames32, dev) if mode.startswith("fp32") else 0
+            want16 = {"bf16 two-phase int8": k1_launches_per_decode(m, frames, dev),
+                      "bf16 fused int8": k1_launches_per_decode(m, budget, dev)}.get(mode, 0)
+            if (l32, l16) != (want32, want16):
+                raise RuntimeError(f"bf16 phase, request {i}, {mode}: K1 launched {l32} times "
+                                   f"in float32 and {l16} in bf16, expected {want32}, {want16}")
+            if mode in want_m and (last[0], int(last[1][0])) != want_m[mode]:
+                raise RuntimeError(f"bf16 phase, request {i}, {mode}: K1's last launch had M "
+                                   f"{last[0]}, valid {int(last[1][0])}; expected "
+                                   f"{want_m[mode]}")
+        corr_2p = _corr(out["bf16 two-phase int8"][0], out["bf16 two-phase float"][0])
+        corr_f = _corr(out["bf16 fused int8"][0], out["bf16 fused float"][0])
+        corr_s = _corr(out["bf16 stream"][0], out["bf16 two-phase float"][0])
+        err_s = float(np.abs(out["bf16 stream"][0] - out["bf16 two-phase float"][0]).max())
+        if not (corr_2p > MIN_REQUEST_CORR and corr_f > MIN_REQUEST_CORR
+                and corr_s > BF16_STREAM_CORR):
+            raise RuntimeError(f"bf16 phase, request {i}: int8 vs float corr two-phase "
+                               f"{corr_2p}, fused {corr_f}; stream vs two-phase {corr_s}")
+        log(f"[bf16] request {i}: {len(text):3d} tokens, {frames:4d} frames (fused {frames_f}, "
+            f"fp32 {frames32}), budget {budget}: " + ", ".join(f"{mode} {out[mode][1]:.2f} ms"
+                                             for mode in BF16_MODES)
+            + f"; K1 bf16 launches two-phase {out['bf16 two-phase int8'][3]}, fused "
+            f"{out['bf16 fused int8'][3]}; int8 vs float corr two-phase {corr_2p:.6f}, fused "
+            f"{corr_f:.6f}; stream vs two-phase corr {corr_s:.8f}, max_abs_err {err_s:.3e}")
+    launches = rb_chain.counter_bf16.launches  # main path ends here
+    for mode in BF16_MODES:
+        v = np.array(lat[mode])
+        log(f"[bf16] {mode:20s}: {len(v)} requests, latency mean {v.mean():.2f} ms median "
+            f"{np.median(v):.2f} ms, {audio_s / (v.sum() / 1e3):.1f} audio-s/s")
+    log(f"[bf16] stream: first chunk mean {np.mean(first_ms):.2f} ms median "
+        f"{np.median(first_ms):.2f} ms")
+
+    # bf16 against fp32 on one request, both decoded from the fp32 engine's
+    # alignment and noise (a bf16 duration may round to another frame count)
+    spk, text, emo, rate = reqs[N_CALIB]
+    with torch.inference_mode():
+        args = (torch.from_numpy(text[None]).to(dev), torch.from_numpy(emo[None]).to(dev),
+                torch.tensor([spk], device=dev))
+        m_p, s_p, logw, g = model32.synth.infer_p1(*args)
+        w = torch.ceil(torch.exp(logw[..., 0]) * rate)
+        attn = infer_path(w, max(int(w.sum()), 1))
+        noise = torch.from_numpy(np.random.RandomState(SEED).randn(
+            1, attn.shape[1], model32.inter_channels).astype(np.float32)
+            * model32.noise_scale).to(dev)
+        ref = model32.synth.infer_p2(attn, m_p, s_p, g, noise).float().cpu().numpy()
+        b = model.synth.infer_p1(args[0].bfloat16(), args[1].bfloat16(), args[2])
+        got = model.synth.infer_p2(attn, b[0], b[1], b[3], noise)
+    corr = _corr(got.float().cpu().numpy(), ref)
+    log(f"[bf16] bf16 against fp32 on one request ({attn.shape[1]} frames, the fp32 "
+        f"alignment): waveform corr {corr:.6f}, max_abs_err "
+        f"{float(np.abs(got.float().cpu().numpy() - ref).max()):.3e}, output {got.dtype}")
+    if got.dtype != torch.bfloat16 or not corr > MIN_REQUEST_CORR:
+        raise RuntimeError(f"the bf16 decode disagrees with the fp32 one (corr {corr})")
+    _env(**saved)
+    del model
+    return launches, lat
+
+
 def _pcm(wav_bytes) -> np.ndarray:
     """The samples of a 16-bit PCM RIFF WAV reply, its header checked."""
     import struct
@@ -972,7 +1279,8 @@ def main() -> int:
 
     phase("build", phase_build)
     rows, worst, tot = phase("kernels", phase_kernels, dev)
-    mas_rows = phase("mas", phase_mas, dev)
+    _, worst16, tot16 = phase("kernels_bf16", phase_kernels, dev, torch.bfloat16)
+    mas_rows, mas_err = phase("mas", phase_mas, dev)
     with tempfile.TemporaryDirectory() as workdir:
         launches, lat, audio_s, model, reqs, ckpt = phase("serving", phase_serving, dev, workdir)
         if launches <= 0:
@@ -981,6 +1289,9 @@ def main() -> int:
         if fused_launches <= 0:
             raise RuntimeError("the fused int8 path launched K1 no time")
         phase("stream", phase_stream, dev, model, reqs[N_CALIB])
+        bf16_launches, _ = phase("bf16", phase_bf16, dev, model, ckpt)
+        if bf16_launches <= 0:
+            raise RuntimeError("the bf16 int8 paths launched K1's bf16 form no time")
         del model
         torch.cuda.empty_cache()
         server_launches = phase("servers", phase_servers, dev, ckpt)
@@ -1002,12 +1313,24 @@ def main() -> int:
         "bound_by": "operations" if tot["ops_s"] >= tot["bytes_s"] else "bytes",
         "library_ms": None,
     }, {
+        "name": "rb2_chain_q8_bf16",
+        "route": "cuda",
+        "source": "vits_tpu_torch/csrc/rb_chain_q8.cu",
+        "replaces": "vits_tpu/nn/pallas_rb.py:96",
+        "launches": bf16_launches,
+        "max_abs_err": worst16,
+        "ms": tot16["ms"],
+        "plain_ms": tot16["plain_ms"],
+        "bound_ms": tot16["bound_ms"],
+        "bound_by": "operations" if tot16["ops_s"] >= tot16["bytes_s"] else "bytes",
+        "library_ms": None,
+    }, {
         "name": "mas",
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
         "launches": mas_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in mas_rows),
+        "max_abs_err": mas_err,
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1015,7 +1338,8 @@ def main() -> int:
         "library_ms": None,
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
-        f"serving {launches}, fused {fused_launches}, servers {server_launches}; phases: "
+        f"serving {launches}, fused {fused_launches}, servers {server_launches}, bf16 form "
+        f"{bf16_launches}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

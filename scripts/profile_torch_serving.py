@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a served request's time goes on the GPU, for the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_serving.py [--frames 1024] [--fused] [--out DIR]
+    python3 scripts/profile_torch_serving.py [--frames 1024] [--fused] [--bf16] [--out DIR]
 
 Builds the seeded random full-width base-config deployment that
 chip_smoke.py serves, warms EmoVITS(quantize=True) up through its
@@ -9,7 +9,9 @@ calibration requests, then traces one two-phase int8 and one two-phase float
 request of about `--frames` frames with torch.profiler; with --fused, also
 the same request through the fused pass with the int8 decoder
 (`infer_fused`, VITS_TPU_FUSED_Q8=1), whose decoder runs over the frame
-budget. Prints, per request: host latency,
+budget, and with the float decoder (the default of `infer`). With --bf16 the
+engine serves in bf16 (`compute_dtype="bf16"`, K1's bf16 form). Prints, per
+request: host latency,
 device busy time (the union of kernel intervals), the device's idle share of
 the latency, and the device time and launches by kernel group (the int8
 chain kernel K1, cuBLAS/cuBLASLt GEMMs, cuDNN convolutions, everything
@@ -105,6 +107,7 @@ def main() -> int:
     ap.add_argument("--frames", type=int, default=1024)
     ap.add_argument("--fused", action="store_true",
                     help="also trace the request through the fused pass, int8 decoder")
+    ap.add_argument("--bf16", action="store_true", help="serve in bf16")
     ap.add_argument("--out", default=None, help="directory for chrome traces")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -122,7 +125,7 @@ def main() -> int:
     rng = np.random.RandomState(cs.SEED)
     with tempfile.TemporaryDirectory() as d:
         model = EmoVITS(cs._write_checkpoint(d, hps_dict, cs.SEED), device=str(dev),
-                        quantize=True)
+                        quantize=True, compute_dtype="bf16" if args.bf16 else "fp32")
     reqs = cs._requests(model, model.q8_calib_requests + 1, rng, dev)
     for i, (spk, text, emo, rate) in enumerate(reqs[:-1]):
         np.random.seed(cs.SEED + i)
@@ -132,9 +135,10 @@ def main() -> int:
     spk, text, emo, _ = reqs[-1]
     with torch.inference_mode():
         _, _, logw, _ = model.synth.infer_p1(
-            torch.from_numpy(text[None]).to(dev), torch.from_numpy(emo[None]).to(dev),
+            torch.from_numpy(text[None]).to(dev, model.compute_dtype),
+            torch.from_numpy(emo[None]).to(dev, model.compute_dtype),
             torch.tensor([spk], device=dev))
-    req = (spk, text, emo, args.frames / float(torch.exp(logw).sum()))
+    req = (spk, text, emo, args.frames / float(torch.exp(logw.float()).sum()))
     dec_q8 = model.dec_q8
 
     def use_int8(on: bool):
@@ -143,10 +147,13 @@ def main() -> int:
     runs = [("int8", True, model._infer_two_phase), ("float", False, model._infer_two_phase)]
     if args.fused:
         os.environ["VITS_TPU_FUSED_Q8"] = "1"
-        runs.append(("fused-int8", True, model.infer_fused))
+        runs += [("fused-int8", True, model.infer_fused),
+                 ("fused-float", False, model.infer_fused)]
         print(f"[profile] fused budget {model.fused_frames(len(req[1]), req[3])} frames")
     res = {}
+    prefix = "bf16-" if args.bf16 else ""
     for label, on, fn in runs:
+        label = prefix + label
         use_int8(on)
         for _ in range(2):  # warm this path at this request's shapes
             np.random.seed(7)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where a training step's time goes on the GPU, for the PyTorch/CUDA port.
 
-    python3 scripts/profile_torch_train.py [--batch 16] [--out DIR]
+    python3 scripts/profile_torch_train.py [--batch 16] [--bf16] [--out DIR]
 
 Builds the seeded random full-width base-config training state that
-chip_smoke.py trains (mel/MPD, fp32, TF32 off), runs three warm steps on the
+chip_smoke.py trains (mel/MPD, fp32, TF32 off; with --bf16 the configured
+bf16 step, its parameter casts a layer of their own), runs three warm steps on the
 training bench's synthetic batch (T_x 96, 400 spec frames; the last two
 timed without the profiler), then traces one step with torch.profiler. Each kernel's device time is charged to the layer
 whose host-side span launched it: the text encoder, posterior encoder,
@@ -87,6 +88,7 @@ def _instrument(synth, disc):
                                            "dp": "duration predictor",
                                            "dec": "decoder"}[name])
     hook_module(disc, "MPD")
+    wrap(step_mod, "cast_params", "parameter casts")
     wrap(mas, "maximum_path", "MAS (K2)")
     wrap(step_mod, "mel_spectrogram", "mel loss")
     wrap(step_mod, "spec_to_mel", "mel loss")
@@ -127,6 +129,7 @@ def _by_layer(prof, kernels):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--bf16", action="store_true", help="the configured bf16 step")
     ap.add_argument("--out", default=None, help="directory for the chrome trace")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -151,7 +154,8 @@ def main() -> int:
     gen_opt, disc_opt = build_optimizers(hps)
     state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=cs.SEED,
                        device=dev)
-    step = make_train_step(TrainStepConfig.from_hps(hps))
+    dtype = torch.bfloat16 if args.bf16 else torch.float32
+    step = make_train_step(TrainStepConfig.from_hps(hps, dtype))
     batch = cs._bench_batch(hps, dev, B, T_x, T_y)
     noise_gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     lr = hps.train.learning_rate
@@ -188,7 +192,8 @@ def main() -> int:
     busy_ms = _busy_us(kernels) / 1e3
     total_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
     layers = {k: v / 1e3 for k, v in _by_layer(prof, kernels).items()}
-    print(f"[profile] training step B={B}: {plain_ms:.2f} ms without the profiler; traced: "
+    print(f"[profile] {str(dtype)[6:]} training step B={B}: {plain_ms:.2f} ms without the "
+          f"profiler; traced: "
           f"host {ms:.2f} ms, device busy {busy_ms:.2f} ms, device idle share "
           f"{1 - busy_ms / ms:.3f} of the traced step ({1 - busy_ms / plain_ms:.3f} of the "
           f"untraced one), {len(kernels)} kernels, kernel time {total_ms:.2f} ms "
@@ -201,8 +206,9 @@ def main() -> int:
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   top {us / 1e3:9.3f} ms  {n[:100]}")
     if args.out:
-        prof.export_chrome_trace(os.path.join(args.out, "trace_train_step.json"))
-    print(json.dumps({"profile": {"batch": B, "step_ms": plain_ms, "traced_host_ms": ms,
+        prof.export_chrome_trace(os.path.join(args.out, f"trace_train_step_{str(dtype)[6:]}.json"))
+    print(json.dumps({"profile": {"dtype": str(dtype)[6:], "batch": B, "step_ms": plain_ms,
+                                  "traced_host_ms": ms,
                                   "busy_ms": busy_ms,
                                   "kernel_ms": total_ms, "layers_ms": layers},
                       "card": cs.card_line()}))

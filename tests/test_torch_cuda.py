@@ -2,8 +2,11 @@
 plain PyTorch version at small shapes, through both of its forms, with the
 launches its plan gives (tolerance of chip_smoke.py: atol
 0.05 * max(1, max|plain|), under 1% of elements off by more than
-1e-3 * max|plain|), and MAS against its plain version, array-equal (the
-same f32 adds and maxes), in the form its plan picks. Marked `cuda`; skips
+1e-3 * max|plain|), bit-equal over the fused budget, and in its bfloat16
+form bit-equal at every base-config chain (the plain version rounds to
+bf16 where the kernel does); and MAS against its plain version,
+array-equal (the same f32 adds and maxes), in the form its plan picks, on
+f32 and on bf16 input. Marked `cuda`; skips
 where no CUDA device is present. Run on the GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (tests/conftest.py
 imports jax, which that machine need not have)."""
@@ -86,6 +89,84 @@ def test_chain_kernel_at_the_fused_budget(cuda, k, C, up):
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert not out[:, valid:].any()
+
+
+def _bf16_case(cuda, C, k, lens, M, seed):
+    """A seeded ResBlock2 in bfloat16 at (C, k, dilations 1, 3, 5), calibrated
+    on its own bf16 input and quantized from its bf16 weights, as bf16
+    serving quantizes: (qp, x (B, M, C) bf16 masked past each length, gs
+    float32, valid)."""
+    gen = torch.Generator().manual_seed(seed)
+    rb = init_weights(ResBlock2(C, k, (1, 3, 5), 16), gen).to(cuda, torch.bfloat16).eval()
+    valid = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    mask = (torch.arange(M, device=cuda)[None] < valid[:, None]).to(torch.bfloat16)[..., None]
+    x = torch.randn(len(lens), M, C, generator=gen).to(cuda, torch.bfloat16) * mask
+    g = torch.randn(len(lens), 16, generator=gen).to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        rec = {}
+        rb(x, g, x_mask=mask, record=rec)
+        qp = rb.quantize_params(rec)
+        gs = torch.stack([rb.conds[str(i)](g) for i in range(3)], 1).float()
+    return qp, x, gs, valid
+
+
+def _bf16_equal(qp, x, gs, valid, launches):
+    before, before_f32 = rb_chain.counter_bf16.launches, rb_chain.counter.launches
+    out = rb_chain.resblock2_chain_q8(qp, x, gs, valid)
+    assert rb_chain.counter_bf16.launches - before == launches
+    assert rb_chain.counter.launches == before_f32  # the float32 form's count
+    ref = rb_chain.chain_q8_plain(qp, x, gs, valid)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and ref.dtype == torch.bfloat16
+    assert torch.equal(out, ref)
+    return out
+
+
+@pytest.mark.parametrize("C,up", [(32, 192), (64, 96), (128, 48), (256, 8)])
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("frames", [256, 4096])
+def test_chain_kernel_bf16_matches_plain(cuda, k, C, up, frames):
+    """K1's bfloat16 form at each base-config chain, over a 256-frame
+    request (valid to a ragged length) and over the 4096-frame fused budget
+    (a 700-frame request in it): bit-equal to the plain version in bf16,
+    which rounds at the same points."""
+    M = frames * up
+    valid = M - 37 * up // 8 - 1 if frames == 256 else 700 * up
+    qp, x, gs, lens = _bf16_case(cuda, C, k, [valid], M, k + C + frames)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    out = _bf16_equal(qp, x, gs, lens, rb_chain.plan(1, M, C, k, (1, 3, 5), n_sm).launches)
+    assert not out[:, valid:].any()
+
+
+@pytest.mark.parametrize("C,k", [(64, 7), (256, 3)])
+def test_chain_kernel_bf16_batch(cuda, C, k):
+    """K1's bfloat16 form at B = 4 with ragged lengths, one whole-chain and
+    one split chain, bit-equal to the plain version."""
+    M = 256 * 48
+    qp, x, gs, lens = _bf16_case(cuda, C, k, [M - 1, M - 3001, M // 2 + 17, 901], M, C + k)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _bf16_equal(qp, x, gs, lens, rb_chain.plan(4, M, C, k, (1, 3, 5), n_sm).launches)
+
+
+@pytest.mark.parametrize("B,T_y,T_x", [(2, 800, 384), (16, 400, 96)])
+def test_mas_kernel_takes_bf16_input(cuda, B, T_y, T_x):
+    """maximum_path on bf16 neg_cent (the bf16 training step's): the kernel
+    takes it cast to f32 and the path comes back in bf16, equal to the plain
+    path on the same input."""
+    gen = torch.Generator().manual_seed(T_y + B)
+    neg = (torch.randn(B, T_y, T_x, generator=gen) * 10).to(cuda, torch.bfloat16)
+    t_ys = torch.tensor([T_y - 13 * (i % 4) for i in range(B)], dtype=torch.int32)
+    t_xs = torch.tensor([T_x - i % 7 for i in range(B)], dtype=torch.int32)
+    mask = ((torch.arange(T_y)[None, :, None] < t_ys[:, None, None])
+            & (torch.arange(T_x)[None, None, :] < t_xs[:, None, None])).to(cuda, torch.bfloat16)
+    before = mas.counter.launches
+    got = mas.maximum_path(neg, mask)
+    assert mas.counter.launches - before == 1
+    want = mas.maximum_path_plain(neg * mask, t_ys.to(cuda), t_xs.to(cuda))
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+    assert torch.equal(got.float().sum(dim=(1, 2)), t_ys.to(cuda).float())
 
 
 @pytest.mark.parametrize("B,T_y,T_x,case,form", [

@@ -81,6 +81,18 @@
 // fma correction (div_rn), the IEEE quotient without a division per element;
 // the results equal the plain version's bit for bit at every base shape
 // (chip_smoke.py).
+//
+// Two forms of I/O, a template parameter of every kernel: float32, and
+// bfloat16 (the Pallas chain at dtype bfloat16, pallas_rb.py:119-137). In
+// bfloat16 x and out are bf16 in device memory (half the activation bytes)
+// and values round to bf16 (round to nearest even) where the Pallas chain
+// rounds: the leaky ReLU (slope bf16(0.1) = 0.10009765625, the product
+// rounded), the gate (computed in f32, rounded before the mask and the
+// quantize), conv2's dequantized output plus b2, and the residual sum. The
+// shared-memory residual stays f32 and holds bf16-exact values, so the
+// layouts and the plan are those of the float32 form; the products, the
+// dequantization and the gate's arithmetic are unchanged.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,7 +107,53 @@ constexpr int kSBO = 256;                 //   and N-adjacent 8-row groups, in b
 constexpr int kChainLoads = 8;            // global loads in flight per thread
 constexpr int kSplitLoads = 16;
 
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : __fmul_rn(v, 0.1f); }
+// Global I/O of one element type: loads and stores of activations, and the
+// rounding to that type (none in float32).
+template <typename IO>
+struct Io;
+
+template <>
+struct Io<float> {
+  static constexpr float kSlope = 0.1f;
+  __device__ static __forceinline__ float round(float v) { return v; }
+  __device__ static __forceinline__ float4 load4(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  __device__ static __forceinline__ float2 load2(const float* p) {
+    return *reinterpret_cast<const float2*>(p);
+  }
+  __device__ static __forceinline__ void store2(float* p, float2 v) {
+    *reinterpret_cast<float2*>(p) = v;
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16> {
+  static constexpr float kSlope = 0.10009765625f;  // bf16(0.1), the JAX package's slope in bf16
+  __device__ static __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  // a bf16 pair of a 32-bit word, the lower address in the low half
+  __device__ static __forceinline__ float2 unpack(uint32_t w) {
+    return make_float2(__uint_as_float(w << 16), __uint_as_float(w & 0xffff0000u));
+  }
+  __device__ static __forceinline__ float4 load4(const __nv_bfloat16* p) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    const float2 a = unpack(u.x), b = unpack(u.y);
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  __device__ static __forceinline__ float2 load2(const __nv_bfloat16* p) {
+    return unpack(*reinterpret_cast<const uint32_t*>(p));
+  }
+  __device__ static __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
+  }
+};
+
+template <typename IO>
+__device__ __forceinline__ float lrelu(float v) {
+  return v >= 0.f ? v : Io<IO>::round(__fmul_rn(v, Io<IO>::kSlope));
+}
 
 // An activation scale and its correctly rounded reciprocal.
 struct Scale {
@@ -306,22 +364,25 @@ __device__ __forceinline__ float gate_value(int acc_a, int acc_b, const float* v
   return __fmul_rn(tanhf(ya), __frcp_rn(__fadd_rn(1.f, expf(-yb))));
 }
 
+template <typename IO>
 __device__ __forceinline__ float out_value(int acc, const float* v, int C, int co, float res) {
   // v: deq2 [2C, 3C), b2 [3C, 4C)
-  return __fadd_rn(__fadd_rn(__fmul_rn(static_cast<float>(acc), v[2 * C + co]), v[3 * C + co]),
-                   res);
+  const float y =
+      Io<IO>::round(__fadd_rn(__fmul_rn(static_cast<float>(acc), v[2 * C + co]), v[3 * C + co]));
+  return Io<IO>::round(__fadd_rn(y, res));
 }
 
+template <typename IO>
 __device__ __forceinline__ int quant4(float4 v, Scale s) {
-  return pack4(quant(lrelu(v.x), s), quant(lrelu(v.y), s), quant(lrelu(v.z), s),
-               quant(lrelu(v.w), s));
+  return pack4(quant(lrelu<IO>(v.x), s), quant(lrelu<IO>(v.y), s), quant(lrelu<IO>(v.z), s),
+               quant(lrelu<IO>(v.w), s));
 }
 
 // ---- the whole-chain form -------------------------------------------------
 
-template <int C, int WG>  // WG warpgroups per block
+template <typename IO, int C, int WG>  // IO: x and out; WG warpgroups per block
 __global__ void __launch_bounds__(128 * WG, C == 32 ? 2 : 1)
-rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
+rb2_chain_kernel(const IO* __restrict__ x, IO* __restrict__ out,
                  const int8_t* __restrict__ wq,   // per dilation: conv1, conv2 packed
                  const float* __restrict__ vec,   // (nd, 4C + 4)
                  const float* __restrict__ gs,    // (B, nd, C)
@@ -375,7 +436,7 @@ rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
     const int f0 = t0 - halo;  // tile row r is frame f0 + r
     const int nv = min(max(valid[b], 0), M);
     const bool more = tile + static_cast<int>(gridDim.x) < n_tiles;
-    const float* xb = x + static_cast<size_t>(b) * M * C;
+    const IO* xb = x + static_cast<size_t>(b) * M * C;
 
     // x rows -> f32 residual and int8 lrelu/quantized input; zero outside [0, M)
     {
@@ -387,15 +448,14 @@ rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
           const int idx = base + u * NT, r = idx / C4, f = f0 + r;
           v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
           if (idx < R * C4 && f >= 0 && f < M)
-            v[u] = __ldg(reinterpret_cast<const float4*>(xb + static_cast<size_t>(f) * C) +
-                         (idx - r * C4));
+            v[u] = Io<IO>::load4(xb + static_cast<size_t>(f) * C + 4 * (idx - r * C4));
         }
 #pragma unroll
         for (int u = 0; u < kChainLoads; ++u) {
           const int idx = base + u * NT, r = idx / C4, c4 = idx - r * C4;
           if (idx < R * C4) {
             *reinterpret_cast<float4*>(xs + r * XS + 4 * c4) = v[u];
-            *reinterpret_cast<int*>(q + chunk_off(r, 4 * c4, RA)) = quant4(v[u], s1);
+            *reinterpret_cast<int*>(q + chunk_off(r, 4 * c4, RA)) = quant4<IO>(v[u], s1);
           }
         }
       }
@@ -434,9 +494,9 @@ rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
                 int qq[2];
 #pragma unroll
                 for (int e2 = 0; e2 < 2; ++e2)
-                  qq[e2] = live ? quant(gate_value(acc[4 * j + 2 * hi + e2],
-                                                   acc[4 * (j + H / 8) + 2 * hi + e2], v, gsb,
-                                                   C, h + e2),
+                  qq[e2] = live ? quant(Io<IO>::round(gate_value(
+                                            acc[4 * j + 2 * hi + e2],
+                                            acc[4 * (j + H / 8) + 2 * hi + e2], v, gsb, C, h + e2)),
                                         s2)
                                 : 0;
                 store2(gt + chunk_off(r, h, RA), qq[0], qq[1]);
@@ -471,14 +531,14 @@ rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
                 const int co = 8 * j + 2 * t;
                 const float2 res = *reinterpret_cast<const float2*>(xs + r * XS + co);
                 float2 o;
-                o.x = live ? out_value(acc[4 * j + 2 * hi], v, C, co, res.x) : 0.f;
-                o.y = live ? out_value(acc[4 * j + 2 * hi + 1], v, C, co + 1, res.y) : 0.f;
+                o.x = live ? out_value<IO>(acc[4 * j + 2 * hi], v, C, co, res.x) : 0.f;
+                o.y = live ? out_value<IO>(acc[4 * j + 2 * hi + 1], v, C, co + 1, res.y) : 0.f;
                 if (last) {
-                  *reinterpret_cast<float2*>(out + (static_cast<size_t>(b) * M + f) * C + co) = o;
+                  Io<IO>::store2(out + (static_cast<size_t>(b) * M + f) * C + co, o);
                 } else {
                   *reinterpret_cast<float2*>(xs + r * XS + co) = o;
-                  store2(q + chunk_off(r, co, RA), quant(lrelu(o.x), s1n),
-                         quant(lrelu(o.y), s1n));
+                  store2(q + chunk_off(r, co, RA), quant(lrelu<IO>(o.x), s1n),
+                         quant(lrelu<IO>(o.y), s1n));
                 }
               }
             }
@@ -500,12 +560,12 @@ rb2_chain_kernel(const float* __restrict__ x, float* __restrict__ out,
 // dilation's int8 input. Dilation i > 0 takes that int8 input (quantized
 // once, by the block that computed it) instead of quantizing x again in
 // every column group.
-template <int MODE, int C>
+template <typename IO, int MODE, int C>
 __global__ void __launch_bounds__(kSplitThreads)
-rb2_split_kernel(const float* __restrict__ x,   // the dilation's input (residual in MODE 1)
+rb2_split_kernel(const IO* __restrict__ x,       // the dilation's input (residual in MODE 1)
                  int8_t* __restrict__ gate,     // (B, M, C/2) int8 scratch
                  int8_t* __restrict__ xq,       // (B, M, C) int8 scratch: lrelu(x) quantized
-                 float* __restrict__ out,       // (B, M, C), MODE 1
+                 IO* __restrict__ out,          // (B, M, C), MODE 1
                  const int8_t* __restrict__ wq, // (groups, K, KB, 64 x 32) packed
                  const float* __restrict__ vec, const float* __restrict__ gs,
                  const int* __restrict__ valid, int M, int K, int d, int i, int nd, int off_a,
@@ -538,7 +598,7 @@ rb2_split_kernel(const float* __restrict__ x,   // the dilation's input (residua
   if (MODE == 0 && i == 0) {  // x -> lrelu -> int8, zero outside [0, M)
     constexpr int C4 = C / 4;
     const Scale s1 = scale_of(v[4 * C]);
-    const float* xb = x + static_cast<size_t>(b) * M * C;
+    const IO* xb = x + static_cast<size_t>(b) * M * C;
     for (int base = tid; base < RA * C4; base += kSplitLoads * NT) {
       float4 u4[kSplitLoads];
 #pragma unroll
@@ -546,14 +606,13 @@ rb2_split_kernel(const float* __restrict__ x,   // the dilation's input (residua
         const int idx = base + u * NT, r = idx / C4, f = t0 - pad + r;
         u4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (idx < RA * C4 && f >= 0 && f < M)
-          u4[u] = __ldg(reinterpret_cast<const float4*>(xb + static_cast<size_t>(f) * C) +
-                        (idx - r * C4));
+          u4[u] = Io<IO>::load4(xb + static_cast<size_t>(f) * C + 4 * (idx - r * C4));
       }
 #pragma unroll
       for (int u = 0; u < kSplitLoads; ++u) {
         const int idx = base + u * NT, r = idx / C4, c4 = idx - r * C4;
         if (idx < RA * C4)
-          *reinterpret_cast<int*>(A + chunk_off(r, 4 * c4, RA)) = quant4(u4[u], s1);
+          *reinterpret_cast<int*>(A + chunk_off(r, 4 * c4, RA)) = quant4<IO>(u4[u], s1);
       }
     }
   } else {  // int8 rows (the quantized input, or the gate), zero outside [0, M)
@@ -625,8 +684,9 @@ rb2_split_kernel(const float* __restrict__ x,   // the dilation's input (residua
         int qq[2];
 #pragma unroll
         for (int e2 = 0; e2 < 2; ++e2)
-          qq[e2] = live ? quant(gate_value(acc[4 * j + 2 * hi + e2],
-                                           acc[4 * (j + 4) + 2 * hi + e2], v, gsb, C, h + e2),
+          qq[e2] = live ? quant(Io<IO>::round(gate_value(acc[4 * j + 2 * hi + e2],
+                                                        acc[4 * (j + 4) + 2 * hi + e2], v, gsb,
+                                                        C, h + e2)),
                                 s2)
                         : 0;
         store2(gate + (static_cast<size_t>(b) * M + f) * H + h, qq[0], qq[1]);
@@ -638,12 +698,12 @@ rb2_split_kernel(const float* __restrict__ x,   // the dilation's input (residua
       for (int j = 0; j < kSplitNB / 8; ++j) {
         const int co = kSplitNB * grp + 8 * j + 2 * t;
         const size_t off = (static_cast<size_t>(b) * M + f) * C + co;
-        const float2 res = *reinterpret_cast<const float2*>(x + off);
+        const float2 res = Io<IO>::load2(x + off);
         float2 o;
-        o.x = live ? out_value(acc[4 * j + 2 * hi], v, C, co, res.x) : 0.f;
-        o.y = live ? out_value(acc[4 * j + 2 * hi + 1], v, C, co + 1, res.y) : 0.f;
-        *reinterpret_cast<float2*>(out + off) = o;
-        if (next) store2(xq + off, quant(lrelu(o.x), s1n), quant(lrelu(o.y), s1n));
+        o.x = live ? out_value<IO>(acc[4 * j + 2 * hi], v, C, co, res.x) : 0.f;
+        o.y = live ? out_value<IO>(acc[4 * j + 2 * hi + 1], v, C, co + 1, res.y) : 0.f;
+        Io<IO>::store2(out + off, o);
+        if (next) store2(xq + off, quant(lrelu<IO>(o.x), s1n), quant(lrelu<IO>(o.y), s1n));
       }
     }
   }
@@ -660,31 +720,49 @@ cudaError_t allow_smem(F* kernel, int smem, int& allowed) {
 }
 
 // 4 warpgroups where the accumulators leave room (C <= 64), else 2
-template <int C, int WG = (C <= 64 ? 4 : 2)>
-cudaError_t launch_chain(const float* x, float* out, const int8_t* wq, const float* vec,
+template <typename IO, int C, int WG = (C <= 64 ? 4 : 2)>
+cudaError_t launch_chain(const void* x, void* out, const int8_t* wq, const float* vec,
                          const float* gs, const int* valid, int B, int M, int K, int nd, int d0,
                          int d1, int d2, int T, int halo, int resident, int off_xs, int off_q,
                          int off_g, int off_bar, int smem, int grid, cudaStream_t st) {
   static int allowed = 48 * 1024;
-  cudaError_t err = allow_smem(rb2_chain_kernel<C, WG>, smem, allowed);
+  cudaError_t err = allow_smem(rb2_chain_kernel<IO, C, WG>, smem, allowed);
   if (err != cudaSuccess) return err;
-  rb2_chain_kernel<C, WG><<<grid, 128 * WG, smem, st>>>(x, out, wq, vec, gs, valid, B, M, K, nd,
-                                                         d0, d1, d2, T, halo, resident, off_xs,
-                                                         off_q, off_g, off_bar);
+  rb2_chain_kernel<IO, C, WG><<<grid, 128 * WG, smem, st>>>(
+      static_cast<const IO*>(x), static_cast<IO*>(out), wq, vec, gs, valid, B, M, K, nd, d0, d1,
+      d2, T, halo, resident, off_xs, off_q, off_g, off_bar);
   return cudaGetLastError();
 }
 
-template <int MODE, int C>
-cudaError_t launch_split(const float* x, int8_t* gate, int8_t* xq, float* out, const int8_t* wq,
+template <typename IO, int MODE, int C>
+cudaError_t launch_split(const void* x, int8_t* gate, int8_t* xq, void* out, const int8_t* wq,
                          const float* vec, const float* gs, const int* valid, int B, int M, int K,
                          int d, int i, int nd, int off_a, int off_bar, int smem, cudaStream_t st) {
   static int allowed = 48 * 1024;
-  cudaError_t err = allow_smem(rb2_split_kernel<MODE, C>, smem, allowed);
+  cudaError_t err = allow_smem(rb2_split_kernel<IO, MODE, C>, smem, allowed);
   if (err != cudaSuccess) return err;
   const dim3 grid((M + kSplitRows - 1) / kSplitRows, MODE == 0 ? C / 64 : C / kSplitNB, B);
-  rb2_split_kernel<MODE, C><<<grid, kSplitThreads, smem, st>>>(
-      x, gate, xq, out, wq, vec, gs, valid, M, K, d, i, nd, off_a, off_bar);
+  rb2_split_kernel<IO, MODE, C><<<grid, kSplitThreads, smem, st>>>(
+      static_cast<const IO*>(x), gate, xq, static_cast<IO*>(out), wq, vec, gs, valid, M, K, d, i,
+      nd, off_a, off_bar);
   return cudaGetLastError();
+}
+
+template <typename IO>
+cudaError_t launch_split_c(int mode, const void* x, int8_t* gate, int8_t* xq, void* out,
+                           const int8_t* wq, const float* vec, const float* gs, const int* valid,
+                           int B, int M, int C, int K, int d, int i, int nd, int off_a,
+                           int off_bar, int smem, cudaStream_t st) {
+#define RB2_SPLIT(MM, CC)                                                                   \
+  if (mode == MM && C == CC)                                                               \
+    return launch_split<IO, MM, CC>(x, gate, xq, out, wq, vec, gs, valid, B, M, K, d, i, nd, \
+                                    off_a, off_bar, smem, st);
+  RB2_SPLIT(0, 128)
+  RB2_SPLIT(1, 128)
+  RB2_SPLIT(0, 256)
+  RB2_SPLIT(1, 256)
+#undef RB2_SPLIT
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -692,54 +770,49 @@ cudaError_t launch_split(const float* x, int8_t* gate, int8_t* xq, float* out, c
 extern "C" {
 
 // The whole chain (nd <= 3 dilations) in one launch; the tile geometry and
-// the shared-memory offsets come from the wrapper's plan. Returns the
-// cudaError_t of the launch (0 on success).
-int rb2_chain_q8(const float* x, float* out, const int8_t* wq, const float* vec, const float* gs,
+// the shared-memory offsets come from the wrapper's plan. x and out are
+// float32, or bfloat16 where bf16 is 1. Returns the cudaError_t of the
+// launch (0 on success).
+int rb2_chain_q8(const void* x, void* out, const int8_t* wq, const float* vec, const float* gs,
                  const int* valid, int B, int M, int C, int K, int nd, int d0, int d1, int d2,
                  int T, int halo, int resident, int off_xs, int off_q, int off_g, int off_bar,
-                 int smem, int grid, void* stream) {
-  if (B <= 0 || M <= 0 || T <= 0 || grid <= 0 || K % 2 == 0 || nd < 1 || nd > 3)
+                 int smem, int grid, int bf16, void* stream) {
+  if (B <= 0 || M <= 0 || T <= 0 || grid <= 0 || K % 2 == 0 || nd < 1 || nd > 3 ||
+      (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (C) {
-#define RB2_CHAIN(CC)                                                                         \
-  case CC:                                                                                    \
-    err = launch_chain<CC>(x, out, wq, vec, gs, valid, B, M, K, nd, d0, d1, d2, T, halo,      \
-                           resident, off_xs, off_q, off_g, off_bar, smem, grid, st);          \
-    break;
-    RB2_CHAIN(32)
-    RB2_CHAIN(64)
-    RB2_CHAIN(128)
-#undef RB2_CHAIN
-    default:
-      err = cudaErrorInvalidValue;
+#define RB2_CHAIN(TT, CC)                                                                     \
+  if (C == CC)                                                                                \
+    return static_cast<int>(launch_chain<TT, CC>(x, out, wq, vec, gs, valid, B, M, K, nd, d0, \
+                                                 d1, d2, T, halo, resident, off_xs, off_q,    \
+                                                 off_g, off_bar, smem, grid, st));
+  if (bf16) {
+    RB2_CHAIN(__nv_bfloat16, 32)
+    RB2_CHAIN(__nv_bfloat16, 64)
+    RB2_CHAIN(__nv_bfloat16, 128)
+  } else {
+    RB2_CHAIN(float, 32)
+    RB2_CHAIN(float, 64)
+    RB2_CHAIN(float, 128)
   }
-  return static_cast<int>(err);
+#undef RB2_CHAIN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // One half of dilation i of nd: mode 0 conv1 + gate (x, or xq past the
 // first dilation -> gate), mode 1 conv2 + b2 + residual + mask (gate, x ->
-// out, and xq for the next dilation).
-int rb2_split_q8(int mode, const float* x, int8_t* gate, int8_t* xq, float* out, const int8_t* wq,
+// out, and xq for the next dilation). x and out as in rb2_chain_q8.
+int rb2_split_q8(int mode, const void* x, int8_t* gate, int8_t* xq, void* out, const int8_t* wq,
                  const float* vec, const float* gs, const int* valid, int B, int M, int C, int K,
-                 int d, int i, int nd, int off_a, int off_bar, int smem, void* stream) {
-  if (B <= 0 || M <= 0 || K % 2 == 0 || (mode != 0 && mode != 1))
+                 int d, int i, int nd, int off_a, int off_bar, int smem, int bf16, void* stream) {
+  if (B <= 0 || M <= 0 || K % 2 == 0 || (mode != 0 && mode != 1) || (bf16 != 0 && bf16 != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (C == 128)
-    err = mode == 0 ? launch_split<0, 128>(x, gate, xq, out, wq, vec, gs, valid, B, M, K, d, i, nd,
-                                           off_a, off_bar, smem, st)
-                    : launch_split<1, 128>(x, gate, xq, out, wq, vec, gs, valid, B, M, K, d, i, nd,
-                                           off_a, off_bar, smem, st);
-  else if (C == 256)
-    err = mode == 0 ? launch_split<0, 256>(x, gate, xq, out, wq, vec, gs, valid, B, M, K, d, i, nd,
-                                           off_a, off_bar, smem, st)
-                    : launch_split<1, 256>(x, gate, xq, out, wq, vec, gs, valid, B, M, K, d, i, nd,
-                                           off_a, off_bar, smem, st);
-  else
-    err = cudaErrorInvalidValue;
+  const cudaError_t err =
+      bf16 ? launch_split_c<__nv_bfloat16>(mode, x, gate, xq, out, wq, vec, gs, valid, B, M, C,
+                                           K, d, i, nd, off_a, off_bar, smem, st)
+           : launch_split_c<float>(mode, x, gate, xq, out, wq, vec, gs, valid, B, M, C, K, d, i,
+                                   nd, off_a, off_bar, smem, st);
   return static_cast<int>(err);
 }
 

@@ -27,11 +27,21 @@ if its waveform correlates with the float decode on the freezing request
 (`VITS_TPU_Q8_MIN_CORR`, default 0.995), int8 decodes run every ResBlock2
 chain through the CUDA kernel of `vits_tpu_torch.nn.rb_chain` on the GPU.
 
-Entry points run on `cuda` unless `device="cpu"` is passed. fp32 serving on
-the GPU turns TF32 off for cuDNN convolutions and cuBLAS matmuls
+Compute dtype: float32 (the default) or bfloat16, from `compute_dtype`
+("fp32"/"bf16" or the torch dtype) or `VITS_TPU_DTYPE`, as the JAX
+package's engine takes it. In bf16 the folded weights are cast once, each
+request's inputs and the noise slice at use, and every path above runs in
+bf16: phase 1, the flows and the float decoder, and the int8 decoder, whose
+calibration records the bf16 activations, whose weights are quantized from
+the bf16-cast ones, whose convs dequantize to bf16 and whose ResBlock2
+chains run K1's bf16 form. Durations, frame counts and the waveform come
+back to the host in float32.
+
+Entry points run on `cuda` unless `device="cpu"` is passed. Serving on the
+GPU turns TF32 off for cuDNN convolutions and cuBLAS matmuls
 (`torch.backends.cudnn.allow_tf32`, `torch.backends.cuda.matmul.allow_tf32`),
-process-wide: TF32 would move the calibration values and the float decode
-the gate reads.
+process-wide: in fp32, TF32 would move the calibration values and the float
+decode the gate reads.
 """
 
 from __future__ import annotations
@@ -55,6 +65,26 @@ _OFF = ("0", "", "false")
 
 def _env_flag(name: str, default: str) -> bool:
     return os.environ.get(name, default) not in _OFF
+
+
+_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def serving_dtype(compute_dtype=None) -> torch.dtype:
+    """The engine's compute dtype: `compute_dtype` ("fp32", "bf16",
+    torch.float32 or torch.bfloat16), else VITS_TPU_DTYPE (default fp32).
+    Raises ValueError on anything else, as the JAX package's engine does."""
+    if compute_dtype is None:
+        name = os.environ.get("VITS_TPU_DTYPE", "fp32")
+        if name not in _DTYPES:
+            raise ValueError(f"VITS_TPU_DTYPE={name!r} not recognized; valid values: "
+                             f"{sorted(_DTYPES)}")
+        return _DTYPES[name]
+    if compute_dtype in _DTYPES.values():
+        return compute_dtype
+    if isinstance(compute_dtype, str) and compute_dtype in _DTYPES:
+        return _DTYPES[compute_dtype]
+    raise ValueError(f"compute_dtype {compute_dtype!r}: the port serves fp32 or bf16")
 
 
 def find_files(root_dir: str, suffix: str):
@@ -82,12 +112,7 @@ class EmoVITS:
             raise NotImplementedError(
                 "AOT serving (the bucketed graphs of vits_tpu/serve/aot.py) is not ported: "
                 "ROADMAP.md A5, CUDA graphs of phase 2 per bucket")
-        if compute_dtype is None:
-            compute_dtype = os.environ.get("VITS_TPU_DTYPE", "fp32")
-        if compute_dtype not in ("fp32", torch.float32):
-            raise ValueError(f"compute_dtype {compute_dtype!r}: the port serves fp32 only "
-                             "(bf16 serving is not ported yet)")
-        self.compute_dtype = torch.float32
+        self.compute_dtype = serving_dtype(compute_dtype)
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -135,7 +160,7 @@ class EmoVITS:
             tree = torch_compat.load_torch_checkpoint(checkpoint_path,
                                                       torch_compat.params_template(hps))
         self.synth = params_from_jax(tree, Synthesizer.from_hps(hps))
-        self.synth.to(self.device).eval()
+        self.synth.to(self.device, self.compute_dtype).eval()
 
         # pre-sampled noise ring buffer; the fused path slices a device copy
         rng = np.random.RandomState(12345)
@@ -247,12 +272,14 @@ class EmoVITS:
         x[0, :x_length] = text[:x_pad]
         x_mask = np.zeros((1, x_pad, 1), np.float32)
         x_mask[0, :x_length] = 1.0
-        return self.synth.infer_p1(self._tensor(x), self._tensor(emo_vec[None]),
+        dt = self.compute_dtype
+        return self.synth.infer_p1(self._tensor(x, dt), self._tensor(emo_vec[None], dt),
                                    self._tensor([spkid], torch.long),
-                                   x_mask=self._tensor(x_mask))
+                                   x_mask=self._tensor(x_mask, dt))
 
     def _alignment(self, w_ceil, x_length, x_pad, y_length, y_pad):
-        """Host-side duration expansion + noise-ring slice."""
+        """Host-side duration expansion + noise-ring slice, in the compute
+        dtype."""
         dur = np.zeros((1, x_pad), np.float32)
         dur[0, :x_length] = w_ceil
         attn = infer_path(self._tensor(dur), y_pad)
@@ -262,7 +289,8 @@ class EmoVITS:
             1, y_pad, self.inter_channels)
         y_mask = np.zeros((1, y_pad, 1), np.float32)
         y_mask[0, :y_length] = 1.0
-        return attn, self._tensor(noise), self._tensor(y_mask)
+        dt = self.compute_dtype
+        return attn.to(dt), self._tensor(noise, dt), self._tensor(y_mask, dt)
 
     def _q8_observe(self, attn, m_p, s_p, g, noise, y_mask) -> bool:
         """Fold one request's activation statistics into the running record;
@@ -285,9 +313,9 @@ class EmoVITS:
         dec_q8 = synth.dec.quantize(scales)
         # one-time quality gate: the int8 decode must correlate with the
         # float decode on the freezing request
-        wav_f = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask).cpu().numpy().ravel()
+        wav_f = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask).float().cpu().numpy().ravel()
         wav_q = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask,
-                               dec_q8=dec_q8).cpu().numpy().ravel()
+                               dec_q8=dec_q8).float().cpu().numpy().ravel()
         denom = float(np.linalg.norm(wav_f) * np.linalg.norm(wav_q))
         corr = float(wav_f @ wav_q) / denom if denom > 0 else 0.0
         self.q8_corr = corr
@@ -333,7 +361,7 @@ class EmoVITS:
         m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
 
         # host: durations -> alignment
-        w = np.exp(logw.cpu().numpy().astype(np.float32))[0, :x_length, 0] * duration_rate
+        w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
         w_ceil = np.ceil(w)
         y_length = max(int(w_ceil.sum()), 1)
         y_pad = self._quantize(y_length, self.frame_quantum)
@@ -366,13 +394,15 @@ class EmoVITS:
         nl = max_frames * C
         start = np.random.randint(max(self.noise.size - nl, 1))
         noise = self._noise_dev[start:start + nl].reshape(1, max_frames, C)
+        dt = self.compute_dtype
         o, _, y_mask, _ = self.synth.inference(
-            self._tensor(x), self._tensor([x_length], torch.int32),
-            self._tensor(emo_vec[None]), self._tensor([spkid], torch.long),
+            self._tensor(x, dt), self._tensor([x_length], torch.int32),
+            self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long),
             length_scale=duration_rate, max_frames=max_frames, noise=noise,
             dec_q8=self.dec_q8 if use_q8 else None)
-        # one read back: the frame count rides in front of the waveform
-        out = torch.cat([y_mask.sum().reshape(1), o.reshape(-1)]).cpu().numpy()
+        # one read back: the frame count (exact in f32) rides in front of the
+        # waveform
+        out = torch.cat([y_mask.float().sum().reshape(1), o.float().reshape(-1)]).cpu().numpy()
         y_frames = int(out[0])
         if y_frames >= max_frames:  # the budget clipped the request
             return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
@@ -394,7 +424,7 @@ class EmoVITS:
         x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
         m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
 
-        w = np.exp(logw.cpu().numpy().astype(np.float32))[0, :x_length, 0] * duration_rate
+        w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
         w_ceil = np.ceil(w)
         y_length = max(int(w_ceil.sum()), 1)
         y_pad = self._quantize(y_length, chunk)
@@ -404,7 +434,7 @@ class EmoVITS:
         up = self.hop_size
         for s, lo, hi, keep in stream_windows(y_length, chunk, halo, y_pad):
             seg = self.synth.dec(z[:, lo:hi], g=g, x_mask=y_mask[:, lo:hi])
-            yield seg[0, (s - lo) * up:(s - lo + keep) * up, 0].cpu().numpy()
+            yield seg[0, (s - lo) * up:(s - lo + keep) * up, 0].float().cpu().numpy()
 
 
 def main(argv=None):
@@ -425,6 +455,8 @@ def main(argv=None):
     parser.add_argument("--verbose", type=int, default=1)
     parser.add_argument("--device", default=None,
                         help="torch device (default cuda; 'cpu' to run on the CPU)")
+    parser.add_argument("--dtype", choices=("fp32", "bf16"), default=None,
+                        help="compute dtype (default: VITS_TPU_DTYPE or fp32)")
     parser.add_argument("--quantize", action="store_true", default=None,
                         help="int8 decoder serving mode")
     args = parser.parse_args(argv)
@@ -432,7 +464,7 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARN)
     os.makedirs(args.outdir, exist_ok=True)
     model = EmoVITS(args.checkpoint, device=args.device, loglv=args.verbose,
-                    quantize=args.quantize)
+                    compute_dtype=args.dtype, quantize=args.quantize)
 
     features = {}
     with open(args.scpfn) as fid:

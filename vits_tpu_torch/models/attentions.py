@@ -41,7 +41,9 @@ class MultiHeadAttention(nn.Module):
         q = self.conv_q(x).reshape(B, T_t, h, d)
         k = self.conv_k(c).reshape(B, T_s, h, d)
         v = self.conv_v(c).reshape(B, T_s, h, d)
-        scores = torch.einsum("bthd,bshd->bhts", q / math.sqrt(d), k).float()
+        # f32 scores from the working-dtype q, k (exact casts), as the JAX
+        # package's preferred_element_type=float32
+        scores = torch.einsum("bthd,bshd->bhts", (q / math.sqrt(d)).float(), k.float())
         if attn_mask is not None:
             scores = scores.masked_fill(attn_mask == 0, -1e4)
         probs = _drop(self, torch.softmax(scores, dim=-1), rng)

@@ -138,15 +138,15 @@ class ResBlock2(nn.Module):
         return rb_chain.quantize_chain(convs, self.kernel_size, self.dilation)
 
     def apply_q8(self, qp, x, g, x_mask=None):
-        """int8 forward of the whole chain: x (B, M, C) float32, g (B, gin),
-        x_mask (B, M, 1) prefix mask or None."""
+        """int8 forward of the whole chain: x (B, M, C) float32 or bfloat16,
+        g (B, gin), x_mask (B, M, 1) prefix mask or None."""
         gs = torch.stack([self.conds[str(i)](g) for i in range(len(self.dilation))],
                          dim=1).float()
         B, M, _ = x.shape
         if x_mask is None:
             valid = torch.full((B,), M, dtype=torch.int32, device=x.device)
         else:
-            valid = x_mask[:, :, 0].sum(dim=1).to(torch.int32)
+            valid = x_mask[:, :, 0].float().sum(dim=1).to(torch.int32)  # exact in f32
         return rb_chain.resblock2_chain_q8(qp, x, gs, valid)
 
 

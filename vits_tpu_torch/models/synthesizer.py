@@ -143,7 +143,7 @@ class PosteriorEncoder(nn.Module):
         x = self.enc(x, x_mask)
         stats = _mask(self.proj(x), x_mask)
         m, logs = stats[..., :self.out_channels], stats[..., self.out_channels:]
-        return _mask(m + eps * torch.exp(logs), x_mask), m, logs
+        return _mask(m + eps.to(m.dtype) * torch.exp(logs), x_mask), m, logs
 
 
 class ResidualCouplingBlock(nn.Module):
@@ -240,11 +240,12 @@ class Generator(nn.Module):
 
     def forward_q8(self, qp: Dict, x, g=None, x_mask=None):
         """The int8 decoder: conv_pre, the length-preserving upsamples, every
-        ResBlock2 chain and conv_post run s8 x s8 -> s32; gates, residuals and
-        the speaker conditioning stay float32."""
+        ResBlock2 chain and conv_post run s8 x s8 -> s32, each dequantized
+        to the activation dtype (float32 or bfloat16); gates, residuals and
+        the speaker conditioning stay in it (K1 computes its gate in f32)."""
         q = qp["pre"]
         x = Q.conv1d_q8(Q.quantize_act(x, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
-                        q["b"], padding=3)
+                        q["b"], padding=3, out_dtype=x.dtype)
         m = x_mask
         for i in range(self.num_upsamples):
             x = leaky_relu(x, LRELU_SLOPE)
@@ -254,7 +255,8 @@ class Generator(nn.Module):
             q = qp["ups"].get(str(i))
             if q is not None:
                 x = Q.conv_transpose1d_q8(Q.quantize_act(x, q["s_in"]), q["wsub"], q["dmin"],
-                                          q["dmax"], q["s_in"], q["s_w"], q["b"])
+                                          q["dmax"], q["s_in"], q["s_w"], q["b"],
+                                          out_dtype=x.dtype)
             else:  # not length-preserving: the JAX package runs this stage in float
                 x = self.ups[str(i)](x)
             x = _mask(x, m)
@@ -268,7 +270,7 @@ class Generator(nn.Module):
         xm = _mask(x, m)
         q = qp["post"]
         x = Q.conv1d_q8(Q.quantize_act(xm, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
-                        None, padding=3)
+                        None, padding=3, out_dtype=xm.dtype)
         return torch.tanh(x)
 
     @torch.no_grad()
@@ -425,7 +427,8 @@ class Synthesizer(nn.Module):
             nc4 = torch.sum(-0.5 * torch.square(m_p_) * s_p_sq_r, dim=-1)
             neg_cent = nc1[:, None, :] + nc2 + nc3 + nc4[:, None, :]
             # the population std over every cell, as jnp.std
-            neg_cent = neg_cent + torch.std(neg_cent, correction=0) * noise["mas"] * align_noise
+            neg_cent = neg_cent + torch.std(neg_cent, correction=0) * \
+                noise["mas"].to(neg_cent.dtype) * align_noise
             attn_mask = y_mask * x_mask.transpose(1, 2)
             attn = mas.maximum_path(neg_cent, attn_mask)
 
@@ -444,7 +447,8 @@ class Synthesizer(nn.Module):
         o = self.dec(z_slice, g=g)
 
         # forward-consistency branch (synthesizer.py:723-724)
-        z_q = self.flow(m_p_e + noise["fwd"] * torch.exp(logs_p_e), y_mask, g=g, reverse=True)
+        z_q = self.flow(m_p_e + noise["fwd"].to(m_p_e.dtype) * torch.exp(logs_p_e), y_mask, g=g,
+                        reverse=True)
         return {
             "y_hat": o, "l_length": l_length, "attn": attn, "ids_slice": ids_slice,
             "x_mask": x_mask, "y_mask": y_mask,
@@ -509,7 +513,8 @@ class Synthesizer(nn.Module):
         x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
         x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g)
         logw = self.dp(x_h, x_mask, g=g)
-        w_ceil = torch.ceil(torch.exp(logw) * x_mask * length_scale)[..., 0]
+        # the rate applies in f32, as the JAX engine passes it (an f32 scalar)
+        w_ceil = torch.ceil((torch.exp(logw) * x_mask).float() * length_scale)[..., 0]
         y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
         y_lengths = y_lengths.clamp(max=max_frames)
         y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(x.dtype)

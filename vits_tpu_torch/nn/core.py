@@ -161,6 +161,11 @@ class Dense(_Kernel):
         _uniform_(self.bias, _bias_bound(self.in_features), gen)
 
     def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            # the product rounded, then the bias add rounded, as the JAX
+            # package's dot(preferred_element_type=x.dtype) + b: the speaker
+            # conditioning K1's gate reads is bit-equal to its
+            return F.linear(x, self.kernel()) + self.bias
         return F.linear(x, self.kernel(), self.bias)
 
 
@@ -288,6 +293,11 @@ class LayerNorm(nn.Module):
 
 
 def leaky_relu(x, slope: float = 0.1):
+    """x where x >= 0, else x * slope with the slope in x's dtype, as the
+    JAX package multiplies by a Python float (vits_tpu/nn/core.py:466): in
+    bf16 that is bf16(0.1) = 0.10009765625, the product rounded once."""
+    if x.dtype == torch.bfloat16:
+        slope = float(torch.tensor(slope, dtype=torch.bfloat16))
     return F.leaky_relu(x, slope)
 
 

@@ -122,12 +122,15 @@ def conv1d_acc(x8: torch.Tensor, w8: torch.Tensor, dilation: int = 1,
     return int_mm(cols, w8.reshape(K * C_in, C_out)).reshape(B, T, C_out)
 
 
-def conv1d_q8(x8, w8, s_in, s_w, bias=None, dilation: int = 1, padding: int = 0):
-    """s8 x s8 -> s32 'same' conv with the dequant epilogue; float32 out."""
+def conv1d_q8(x8, w8, s_in, s_w, bias=None, dilation: int = 1, padding: int = 0,
+              out_dtype=torch.float32):
+    """s8 x s8 -> s32 'same' conv with the dequant epilogue in float32, the
+    result rounded to out_dtype (the activation dtype, as the JAX package's
+    `out_dtype=x.dtype`)."""
     y = conv1d_acc(x8, w8, dilation, padding).float() * (s_in * s_w)
     if bias is not None:
         y = y + bias
-    return y
+    return y.to(out_dtype)
 
 
 def transposed_subpixel_kernel(w8: torch.Tensor, stride: int, padding: int):
@@ -149,10 +152,12 @@ def transposed_subpixel_kernel(w8: torch.Tensor, stride: int, padding: int):
     return W.reshape(J * C_in, u * C_out), dmin, dmax
 
 
-def conv_transpose1d_q8(x8, wsub, dmin: int, dmax: int, s_in, s_w, bias=None):
+def conv_transpose1d_q8(x8, wsub, dmin: int, dmax: int, s_in, s_w, bias=None,
+                        out_dtype=torch.float32):
     """Length-preserving (k == 2*pad + u) polyphase int8 transposed conv.
     x8 (B, T, C_in) int8; wsub from `transposed_subpixel_kernel`; s_w
-    (u, C_out) per-phase scales. Returns (B, T*u, C_out) float32."""
+    (u, C_out) per-phase scales. Returns (B, T*u, C_out), the float32
+    epilogue rounded to out_dtype."""
     B, T, _ = x8.shape
     u, C_out = s_w.shape
     cols = im2col(x8, list(range(dmax - dmin + 1)), -dmin, dmax)
@@ -160,4 +165,4 @@ def conv_transpose1d_q8(x8, wsub, dmin: int, dmax: int, s_in, s_w, bias=None):
     y = y.reshape(B, T * u, C_out)
     if bias is not None:
         y = y + bias
-    return y
+    return y.to(out_dtype)

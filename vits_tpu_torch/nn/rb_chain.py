@@ -13,8 +13,15 @@ integer products); on a CUDA tensor it launches the hand-written kernels in
 `vits_tpu_torch/csrc/rb_chain_q8.cu` (int8 `wgmma`, weights staged in
 shared memory by the TMA unit) as `plan` says, or raises: one launch per
 chain where a whole-chain tile fits ("chain"), else two per dilation
-("split"). `counter.launches` counts those launches; `counter.last` holds
-the last one's M and its `valid` tensor (on the device, not read).
+("split"). `counter.launches` counts the float32 form's launches and
+`counter_bf16.launches` the bfloat16 form's; each counter's `last` holds its
+last launch's M and `valid` tensor (on the device, not read).
+
+Activations are float32 or bfloat16, the two forms of the kernel. In
+bfloat16 the chain is the Pallas kernel's at that dtype: the arithmetic
+above in float32, rounded to bf16 at the leaky ReLU (slope bf16(0.1)),
+the gate (before the mask and the quantize), conv2's dequantized output
+plus b2, and the residual sum.
 """
 
 from __future__ import annotations
@@ -32,9 +39,11 @@ from vits_tpu_torch.utils import cuda_build
 
 SOURCE = "rb_chain_q8.cu"
 LRELU_SLOPE = 0.1
+IO_DTYPES = (torch.float32, torch.bfloat16)  # the kernel's two forms of x and out
 SMEM_LIMIT = 232448  # dynamic shared memory a block may use on sm_90
 
-counter = cuda_build.LaunchCounter()
+counter = cuda_build.LaunchCounter()        # the float32 form's launches
+counter_bf16 = cuda_build.LaunchCounter()   # the bfloat16 form's
 
 
 # ---------------------------------------------------------------------------
@@ -129,10 +138,15 @@ def quantize_chain(convs, kernel_size: int, dilation: Sequence[int]) -> Dict:
 def chain_q8_plain(qp: Dict, x: torch.Tensor, gs: torch.Tensor,
                    valid: torch.Tensor) -> torch.Tensor:
     """The chain in plain PyTorch, in the JAX package's `apply_q8` order.
-    x (B, M, C) float32; gs (B, n_iter, C) = cond_i(g); valid (B,) int32."""
+    x (B, M, C) float32 or bfloat16; gs (B, n_iter, C) float32 = cond_i(g);
+    valid (B,) int32. The products, dequantization and gate run in float32;
+    in bfloat16 the values round to it where the Pallas chain at that dtype
+    rounds (vits_tpu/nn/pallas_rb.py:119-137): the leaky ReLU of the
+    residual (slope bf16(0.1)), the gate before the mask and the quantize,
+    conv2's dequantized output, and the residual sum."""
     K = qp["kernel_size"]
-    M = x.shape[1]
-    mask = (torch.arange(M, device=x.device)[None, :] < valid[:, None]).to(x.dtype)[..., None]
+    M, dt = x.shape[1], x.dtype
+    mask = (torch.arange(M, device=x.device)[None, :] < valid[:, None]).to(dt)[..., None]
     for i, (it, d) in enumerate(zip(qp["iters"], qp["dilation"])):
         half = it["w2"].shape[1]
         xt = leaky_relu(x, LRELU_SLOPE)
@@ -140,9 +154,9 @@ def chain_q8_plain(qp: Dict, x: torch.Tensor, gs: torch.Tensor,
                         it["b1"], dilation=d, padding=d * (K - 1) // 2)
         gate = torch.tanh(y[..., :half] + gs[:, i, None, :half]) * \
             torch.sigmoid(y[..., half:] + gs[:, i, None, half:])
-        gate = gate * mask
+        gate = gate.to(dt) * mask
         y = Q.conv1d_q8(Q.quantize_act(gate, it["s_in2"]), it["w2"], it["s_in2"], it["s_w2"],
-                        it["b2"], padding=(K - 1) // 2)
+                        it["b2"], padding=(K - 1) // 2, out_dtype=dt)
         x = (y + x) * mask
     return x
 
@@ -311,9 +325,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load(SOURCE)
     if not getattr(lib, "_vits_typed", False):
-        lib.rb2_chain_q8.argtypes = [_P] * 6 + [_I] * 17 + [_P]
+        lib.rb2_chain_q8.argtypes = [_P] * 6 + [_I] * 18 + [_P]
         lib.rb2_chain_q8.restype = _I
-        lib.rb2_split_q8.argtypes = [_I] + [_P] * 8 + [_I] * 10 + [_P]
+        lib.rb2_split_q8.argtypes = [_I] + [_P] * 8 + [_I] * 11 + [_P]
         lib.rb2_split_q8.restype = _I
         lib.rb2_error_string.argtypes = [_I]
         lib.rb2_error_string.restype = ctypes.c_char_p
@@ -357,7 +371,8 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
                   p: Optional[Plan] = None) -> torch.Tensor:
     """Launch the kernel on the current stream as `plan` (or the given plan
     of the same form, for tuning) says: once per chain (whole-chain form) or
-    twice per dilation (split form)."""
+    twice per dilation (split form). x float32 or bfloat16: the kernel's
+    form of that I/O type; the output has x's dtype."""
     B, M, C = x.shape
     K, dil = qp["kernel_size"], tuple(qp["dilation"])
     n = len(dil)
@@ -371,7 +386,11 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
     if p.form != kp["form"]:
         raise ValueError(f"rb2_chain_q8: weights packed for the {kp['form']} form, the plan "
                          f"for C={C} k={K} is {p.form}")
-    _check("x", x, torch.float32, (B, M, C), dev)
+    if x.dtype not in IO_DTYPES:
+        raise ValueError(f"rb2_chain_q8: x must be float32 or bfloat16, got {x.dtype}")
+    bf16 = int(x.dtype == torch.bfloat16)
+    count = counter_bf16 if bf16 else counter
+    _check("x", x, x.dtype, (B, M, C), dev)
     _check("gs", gs, torch.float32, (B, n, C), dev)
     _check("valid", valid, torch.int32, (B,), dev)
     _check_operands(kp, C, K, n, dev)
@@ -383,10 +402,10 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
         err = lib.rb2_chain_q8(x.data_ptr(), out.data_ptr(), kp["wq"].data_ptr(),
                                kp["vec"].data_ptr(), gs.data_ptr(), valid.data_ptr(),
                                B, M, C, K, n, d[0], d[1], d[2], p.T, p.halo, int(p.resident),
-                               *p.offsets, p.smem, p.grid, stream)
+                               *p.offsets, p.smem, p.grid, bf16, stream)
         _raise_on(lib, err, "rb2_chain_q8")
-        counter.launches += 1
-        counter.last = (M, valid)
+        count.launches += 1
+        count.last = (M, valid)
         return out
     gate = torch.empty(B, M, C // 2, dtype=torch.int8, device=dev)
     xq = torch.empty(B, M, C, dtype=torch.int8, device=dev) if n > 1 else gate
@@ -399,18 +418,19 @@ def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tens
             err = lib.rb2_split_q8(mode, cur.data_ptr(), gate.data_ptr(), xq.data_ptr(),
                                    nxt.data_ptr(), w.data_ptr(), kp["vec"].data_ptr(),
                                    gs.data_ptr(), valid.data_ptr(), B, M, C, K, d, i, n,
-                                   off_a, off_bar, smem, stream)
+                                   off_a, off_bar, smem, bf16, stream)
             _raise_on(lib, err, "rb2_split_q8")
-            counter.launches += 1
-            counter.last = (M, valid)
+            count.launches += 1
+            count.last = (M, valid)
         cur = nxt
     return cur
 
 
 def resblock2_chain_q8(qp: Dict, x: torch.Tensor, gs: torch.Tensor,
                        valid: torch.Tensor) -> torch.Tensor:
-    """One ResBlock2's int8 chain. x (B, M, C) float32 activations (masked
-    like the JAX package's apply_q8 input); gs (B, n_iter, C) float32 gate
+    """One ResBlock2's int8 chain. x (B, M, C) float32 or bfloat16
+    activations (masked like the JAX package's apply_q8 input), the output
+    in x's dtype; gs (B, n_iter, C) float32 gate
     conditioning cond_i(g); valid (B,) int32 valid-frame counts (<= M).
     CPU tensors take the plain version, CUDA tensors the kernel."""
     if x.device.type == "cpu":
@@ -420,11 +440,13 @@ def resblock2_chain_q8(qp: Dict, x: torch.Tensor, gs: torch.Tensor,
     return chain_q8_cuda(qp, x, gs, valid)
 
 
-def chain_ops_bytes(B: int, M: int, C: int, K: int, n_iter: int) -> List[int]:
+def chain_ops_bytes(B: int, M: int, C: int, K: int, n_iter: int,
+                    io_bytes: int = 4) -> List[int]:
     """(operations, bytes) one chain needs: 2 ops per int8 MAC of both convs
-    of every dilation; each f32 activation read once and written once, the
-    int8 weights and the f32 per-channel vectors read once."""
+    of every dilation; each activation (io_bytes: 4 in float32, 2 in
+    bfloat16) read once and written once, the int8 weights and the f32
+    per-channel vectors read once."""
     ops = n_iter * 2 * B * M * K * (C * C + (C // 2) * C)
     weights = n_iter * (K * C * C + K * (C // 2) * C)
     vectors = n_iter * 4 * (5 * C + 2) + B * n_iter * C * 4 + B * 4
-    return [ops, 2 * B * M * C * 4 + weights + vectors]
+    return [ops, 2 * B * M * C * io_bytes + weights + vectors]

@@ -35,9 +35,12 @@ counter = cuda_build.LaunchCounter()
 
 
 def mask_to_lengths(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """attn mask (B, T_y, T_x) -> (t_ys, t_xs) int32."""
-    t_ys = mask[:, :, 0].sum(dim=1).to(torch.int32)
-    t_xs = mask[:, 0, :].sum(dim=1).to(torch.int32)
+    """attn mask (B, T_y, T_x) -> (t_ys, t_xs) int32, counted in f32 (exact
+    to 2^24) whatever the mask's dtype. The JAX package sums in the mask's
+    dtype, so a bf16 mask rounds a length past 256 to 8 significant bits
+    (vits_tpu/ops/mas.py:37); the port does not copy that."""
+    t_ys = mask[:, :, 0].float().sum(dim=1).to(torch.int32)
+    t_xs = mask[:, 0, :].float().sum(dim=1).to(torch.int32)
     return t_ys, t_xs
 
 

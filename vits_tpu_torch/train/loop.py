@@ -1,7 +1,7 @@
 """Building the training state (counterpart of vits_tpu/train/loop.py:41-93)
 for the mel/MPD variant without the duration discriminator: the
-alignment-noise schedule, the parameter count, the models, their optimizers
-and the seeded initial state. The loop over a data set (`run`, with the
+alignment-noise schedule, the parameter count, the models, their optimizers,
+the seeded initial state and the step in the config's compute dtype. The loop over a data set (`run`, with the
 data pipeline and checkpoints) is not ported yet: the repository holds no
 corpus to drive it.
 
@@ -20,6 +20,7 @@ from vits_tpu_torch.models.discriminators import MultiPeriodDiscriminator
 from vits_tpu_torch.models.synthesizer import Synthesizer
 from vits_tpu_torch.nn.core import init_weights
 from vits_tpu_torch.train.optim import Optimizer
+from vits_tpu_torch.train.step import TrainStepConfig, make_train_step
 
 
 def align_noise_at(hps, step: int) -> float:
@@ -70,3 +71,10 @@ def init_state(hps, synth, disc, gen_opt, disc_opt, seed: Optional[int] = None,
             "gen_opt": gen_opt.init(synth.parameters()),
             "disc_opt": disc_opt.init(disc.parameters()),
             "step": 0, "rng": torch.Generator(device=dev).manual_seed(seed + 1)}
+
+
+def build_step(hps, compute_dtype: Optional[torch.dtype] = None):
+    """The mel/MPD train step in the config's compute dtype (bfloat16 where
+    `train.bf16_run` is set, as vits_tpu/train/loop.py:346 builds it), or in
+    `compute_dtype`."""
+    return make_train_step(TrainStepConfig.from_hps(hps, compute_dtype))

@@ -1,6 +1,6 @@
 """The mel/MPD GAN training step (counterpart of vits_tpu/train/step.py,
-`variant="mel"` without the duration discriminator, in float32; the
-stft/MRD variant is not ported yet).
+`variant="mel"` without the duration discriminator; the stft/MRD variant is
+not ported yet), in float32 or in the configured bfloat16.
 
 One step, as the JAX package's: the generator forward runs once under
 autograd; the discriminator step runs first on `y_hat.detach()` (D loss,
@@ -11,6 +11,16 @@ parameters are frozen (`requires_grad_(False)`) while the generator loss
 runs, so its gradients from that loss are never formed and cannot leak into
 the next discriminator step. Gradients are not clipped; their global norms
 are reported (`clip_grad_value`).
+
+Compute dtype (`TrainStepConfig.compute_dtype`, from `hps.train.bf16_run`
+as the JAX package's loop sets it): the JAX step's mixed precision. The
+parameters stay float32 masters; the generator forward, the D pass and G's
+adversarial pass run on a copy of every float32 parameter cast to the
+compute dtype (`cast_call`: weight norm's g and v are cast, and the kernel
+is then formed in that dtype), with the inputs x, spec and emo, the slices
+and y_hat cast; y_hat comes back to float32 for the mel loss; losses,
+gradients and optimizer state are float32, the gradients landing on the
+masters through the casts. In float32 the casts are identities.
 
 Torch modules hold their parameters, so the step reads the models and their
 optimizer states from `state` (`vits_tpu_torch.train.loop.init_state`) and
@@ -30,6 +40,26 @@ from vits_tpu_torch.train import losses as L
 from vits_tpu_torch.train.optim import Optimizer
 
 
+def compute_dtype_of(hps) -> torch.dtype:
+    """bfloat16 where the config sets `train.bf16_run`, else float32
+    (vits_tpu/train/loop.py:346)."""
+    return torch.bfloat16 if getattr(hps.train, "bf16_run", False) else torch.float32
+
+
+def cast_params(module: torch.nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """{name: parameter cast to `dtype`} for every float32 parameter of
+    `module` (the JAX step's `cast_p`). Each cast is differentiable, so
+    gradients land on the float32 masters, and a frozen parameter's cast
+    carries none. In float32 every cast is the parameter itself."""
+    return {n: p.to(dtype) for n, p in module.named_parameters() if p.dtype == torch.float32}
+
+
+def cast_call(module: torch.nn.Module, dtype: torch.dtype, *args, **kwargs):
+    """module(*args, **kwargs) on `cast_params(module, dtype)`, through
+    `torch.func.functional_call`."""
+    return torch.func.functional_call(module, cast_params(module, dtype), args, kwargs)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainStepConfig:
     segment_frames: int
@@ -44,15 +74,21 @@ class TrainStepConfig:
     c_dur: float = 2.0
     c_kl: float = 1.0
     c_kl_q: float = 0.01
+    compute_dtype: torch.dtype = torch.float32
 
     @classmethod
-    def from_hps(cls, hps):
+    def from_hps(cls, hps, compute_dtype: Optional[torch.dtype] = None):
+        """The config's step; compute_dtype None takes it from
+        `train.bf16_run` (`compute_dtype_of`)."""
         t, d = hps.train, hps.data
+        if compute_dtype is None:
+            compute_dtype = compute_dtype_of(hps)
         return cls(segment_frames=t.segment_size // d.hop_length,
                    hop_length=d.hop_length, filter_length=d.filter_length,
                    win_length=d.win_length, n_mel_channels=d.n_mel_channels,
                    sampling_rate=d.sampling_rate, mel_fmin=d.mel_fmin, mel_fmax=d.mel_fmax,
-                   c_mel=t.c_mel, c_dur=t.c_dur, c_kl=t.c_kl, c_kl_q=t.c_kl_q)
+                   c_mel=t.c_mel, c_dur=t.c_dur, c_kl=t.c_kl, c_kl_q=t.c_kl_q,
+                   compute_dtype=compute_dtype)
 
 
 def make_train_step(cfg: TrainStepConfig):
@@ -72,6 +108,7 @@ def make_train_step(cfg: TrainStepConfig):
                    noise: Dict[str, torch.Tensor], lr_g: float, lr_d: float,
                    align_noise: float):
         synth, disc = state["gen"], state["disc"]
+        cd = cfg.compute_dtype
         wav = batch["wav"].float()
         if "spec" in batch:
             spec = batch["spec"].float()
@@ -81,17 +118,18 @@ def make_train_step(cfg: TrainStepConfig):
                 spec = spectrogram(wav, cfg.filter_length, cfg.hop_length,
                                    cfg.win_length)[:, :frames]
 
-        out = synth(batch["x"].float(), batch["x_lengths"], spec, batch["spec_lengths"],
-                    batch["emo"].float(), batch["sid"], noise, align_noise=align_noise,
-                    rng=state.get("rng"))
+        out = cast_call(synth, cd, batch["x"].to(cd), batch["x_lengths"], spec.to(cd),
+                        batch["spec_lengths"], batch["emo"].to(cd), batch["sid"], noise,
+                        align_noise=align_noise, rng=state.get("rng"))
         ids = out["ids_slice"]
         seg = cfg.segment_frames * cfg.hop_length
         y_slice = slice_segments_1d(wav, ids * cfg.hop_length, seg)[..., None]
+        y_slice_c = y_slice.to(cd)
         y_hat = out["y_hat"].float()
 
         # ---------------- D step (train.py:204-214) ----------------
         disc.requires_grad_(True)
-        y_d_r, y_d_g, _, _ = disc(y_slice, y_hat.detach())
+        y_d_r, y_d_g, _, _ = cast_call(disc, cd, y_slice_c, y_hat.detach().to(cd))
         loss_disc, losses_d_r, losses_d_g = L.discriminator_loss(y_d_r, y_d_g)
         state["disc_opt"].zero_grad(set_to_none=True)
         loss_disc.backward()
@@ -113,7 +151,7 @@ def make_train_step(cfg: TrainStepConfig):
                                     cfg.sampling_rate, cfg.hop_length, cfg.win_length,
                                     cfg.mel_fmin, cfg.mel_fmax)
         loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.c_mel
-        _, y_d_g, fmap_r, fmap_g = disc(y_slice, y_hat)
+        _, y_d_g, fmap_r, fmap_g = cast_call(disc, cd, y_slice_c, y_hat.to(cd))
         loss_fm = L.feature_loss(fmap_r, fmap_g)
         loss_gen, gen_losses = L.generator_loss(y_d_g)
         loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_kl_q
