@@ -83,11 +83,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 do not depend on the MAS path (D, GAN, feature, mel, D's
                 gradient norm) within 3e-2, the path's moved cells and the
                 other losses printed (bf16 neg_cent's rounding moves it);
-  8. card     - print the card's name and power limit.
+  8. run      - `loop.run` on the card at full width with the duration
+                discriminator (-d), in the configured bf16, batch 32, over
+                a synthetic corpus written at the base widths (96
+                utterances of 2-12 s, 256-d .vec of 40-200 vectors, 1024-d
+                .emo, sids under 2048, 4 eval utterances), spectrograms on
+                the device, compact batches: 8 steps with one eval and one
+                save at the last (G/D/P_8.npz read back equal to the live
+                state), then a resume for 2 steps; K2 launched once per step
+                of each, losses finite (the critic's too); the loop's median
+                step ms against the bare step at its largest bucket shape,
+                audio-s/s, input stall, eval and save seconds, peak memory;
+                then `python -m vits_tpu_torch.train -d` as a subprocess for
+                one epoch of a 16-utterance corpus;
+  9. card     - print the card's name and power limit.
 Each phase prints the seconds it took. K1's launches in the kernels line are
 those of the serving, fused and server phases, each read with the counter set
 to 0 just before the path runs and read just after; its bf16 form's those of
-the bf16 phase, and K2's those of both precisions' training steps.
+the bf16 phase, and K2's those of both precisions' training steps and of the
+run and its resume.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -482,9 +496,10 @@ def phase_training(dev):
     t0 = time.perf_counter()
     runs = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", None)):
-        synth, disc = build_models(hps)
-        gen_opt, disc_opt = build_optimizers(hps)
-        state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=SEED, device=dev)
+        synth, disc, _ = build_models(hps)
+        gen_opt, disc_opt, _ = build_optimizers(hps)
+        state = init_state(hps, synth, disc, None, gen_opt, disc_opt, None, seed=SEED,
+                           device=dev)
         runs[name] = {"state": state, "step": build_step(hps, dtype), "times": [], "peak": 0.0,
                       "work": 0.0}
     synth = runs["fp32"]["state"]["gen"]
@@ -570,7 +585,7 @@ def phase_training(dev):
             ("fp32", torch.float32, LOSS_RTOL, LOSS_ATOL, LOSS_KEYS),
             ("bf16", torch.bfloat16, BF16_LOSS_RTOL, BF16_LOSS_ATOL, PATH_FREE)):
         cells, differ, losses, cpu_s = _card_vs_cpu(
-            dev, runs[name]["step"], build_optimizers(hps), synth, disc, small, noise, lr, dtype)
+            dev, runs[name]["step"], build_optimizers(hps)[:2], synth, disc, small, noise, lr, dtype)
         rel = {k: abs(a - c) / max(abs(c), atol / rtol) for k, (a, c) in losses.items()}
         bad = [k for k in keys if not abs(losses[k][0] - losses[k][1])
                <= atol + rtol * abs(losses[k][1])]
@@ -588,19 +603,291 @@ def phase_training(dev):
     return main_launches, med, audio_s, {k: r["peak"] for k, r in runs.items()}
 
 
+RUN_UTTS, RUN_VALID = 96, 4  # the [run] phase's corpus: 2-12 s utterances, and eval ones
+RUN_SECONDS = (2.0, 11.9)     # below the base config's max_wav_len of 12 s
+RUN_STEPS, RUN_RESUME = 8, 2  # the run's steps (one eval and one save, at its last), the resume's
+RUN_LOG_INTERVAL = 2
+CLI_UTTS, CLI_SECONDS = 16, (2.0, 3.5)  # the CLI's corpus: one bucket, one step an epoch
+BARE_STEPS = 3                # the bare step at the run's largest bucket, after 1 warm-up
+
+
+def write_corpus(dirpath, hps, n, seconds, seed, prefix="u"):
+    """n synthetic utterances at the config's widths, as the data pipeline
+    reads them: a 16-bit wav of `seconds` (uniform), a .vec of
+    text_channels-wide float32 vectors (about one per 6 frames, 40-200), a
+    1024-d .emo and a speaker id under n_speakers. Returns the scp lines."""
+    from vits_tpu_torch.utils.audio import write_wav
+    rng = np.random.RandomState(seed)
+    d = hps.data
+    lines = []
+    for i in range(n):
+        T = int(rng.uniform(*seconds) * d.sampling_rate)
+        stem = os.path.join(dirpath, f"{prefix}{i}")
+        t = np.arange(T) / d.sampling_rate
+        f0 = rng.uniform(90, 250)
+        wav = 0.3 * np.sin(2 * np.pi * f0 * t) + 0.1 * rng.randn(T)
+        write_wav(stem + ".wav", wav.astype(np.float32), d.sampling_rate)
+        n_vec = int(np.clip(T // d.hop_length // 6 + rng.randint(-5, 6), 40, 200))
+        rng.randn(n_vec, d.text_channels).astype(np.float32).tofile(stem + ".vec")
+        rng.randn(1024).astype(np.float32).tofile(stem + ".emo")
+        lines.append(f"{stem}.vec|{stem}.wav|{stem}.emo|{rng.randint(0, d.n_speakers)}")
+    return lines
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}//{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, key))
+        elif k != "__empty__":
+            out[key] = np.asarray(v)
+    return out
+
+
+def _checkpoint_equals_state(model_dir, state, step) -> int:
+    """Every leaf of G/D/P_<step>.npz, read back, equals the live state's
+    (parameters and AdamW state in the JAX layout). Returns the leaves."""
+    from vits_tpu_torch.convert import optimizer_to_jax, params_to_jax
+    from vits_tpu_torch.utils.checkpoint import read_checkpoint
+    n = 0
+    for prefix, key in (("G", "gen"), ("D", "disc"), ("P", "dur")):
+        tree, s, _ = read_checkpoint(os.path.join(model_dir, f"{prefix}_{step}.npz"))
+        live = _flat({"model": params_to_jax(state[key].state_dict()),
+                      "optimizer": optimizer_to_jax(state[f"{key}_opt"], state[key])})
+        got = _flat(tree)
+        bad = [k for k in live if k not in got or not np.array_equal(got[k], live[k])]
+        if s != step or bad or set(got) != set(live):
+            raise RuntimeError(f"{prefix}_{step}.npz (step {s}) differs from the live state: "
+                               f"{bad[:5]}, {sorted(set(got) ^ set(live))[:5]}")
+        n += len(live)
+    return n
+
+
+def _run_mas_equal_plain(dev, calls, launches) -> float:
+    """The run's K2 launches (inputs and paths recorded on the host) against
+    the plain search on the same inputs: each path bit-exact, one path step a
+    frame; then each distinct shape's plan and device time. Launches made
+    here are outside the main path's count. Returns the largest difference."""
+    from vits_tpu_torch.ops import mas
+    torch.cuda.synchronize()
+    if len(calls) != launches:
+        raise RuntimeError(f"{len(calls)} K2 launches recorded of the runs' {launches}")
+    err, shapes = 0.0, {}
+    for i, (neg, ty, tx, path) in enumerate(calls):
+        neg, ty, tx, path = (t.to(dev) for t in (neg, ty, tx, path))
+        ref = mas.maximum_path_plain(neg, ty, tx)
+        e = float((path - ref).abs().max())
+        if not (torch.equal(path, ref) and torch.equal(path.sum(dim=(1, 2)), ty.float())):
+            raise RuntimeError(f"K2's path at the run's launch {i}, shape {tuple(neg.shape)}, "
+                               f"differs from the plain search (max_abs_err {e:.1e})")
+        err = max(err, e)
+        shapes.setdefault(tuple(neg.shape), (neg, ty, tx))
+    for (B, T_y, T_x), (neg, ty, tx) in sorted(shapes.items()):
+        p = mas.plan(B, T_y, T_x)
+        ms = graph_ms(lambda: mas.maximum_path_cuda(neg, ty, tx))
+        bound = mas.mas_bytes(ty, tx, T_y, T_x) / HBM_BW * 1e3
+        log(f"[run] K2 at ({B}, {T_y}, {T_x}): form {p.form} R={p.R} D={p.D}: kernel "
+            f"{ms:.4f} ms, bound {bound:.3e} ms (bytes; {100 * bound / ms:.1f}% of it)")
+    log(f"[run] K2's {len(calls)} launches of the runs, at {len(shapes)} shapes "
+        f"{sorted(shapes)}, bit-exact against the plain search (max_abs_err {err:.1e})")
+    return err
+
+
+def phase_run(dev, workdir):
+    """`loop.run` on the card at the base config's full width with the
+    duration discriminator, in the configured bf16, batch 32, over a
+    synthetic corpus: RUN_STEPS steps with one eval and one save at the
+    last, its checkpoints read back equal to the live state, then a resume
+    for RUN_RESUME steps; K2 launched once per step of each; the bare step
+    at the run's largest bucket shape timed on the resumed state; then the
+    CLI (`python -m vits_tpu_torch.train -d`) as a subprocess for one epoch
+    of a small corpus. Every K2 launch of the two runs is held against the
+    plain search on the same input, bit-exact (`_run_mas_equal_plain`).
+    Returns K2's launches in the two runs, as counted, and its largest
+    difference from the plain search."""
+    from vits_tpu_torch.config import HParams, default_config_path, get_hparams_from_file
+    from vits_tpu_torch.ops import mas
+    from vits_tpu_torch.train import loop
+    from vits_tpu_torch.train.data import (DEFAULT_BOUNDARIES, BucketSampler, Prefetcher,
+                                           TextAudioSpeakerDataset)
+
+    hps = get_hparams_from_file(default_config_path("base"))
+    t0 = time.perf_counter()
+    lines = write_corpus(workdir, hps, RUN_UTTS + RUN_VALID, RUN_SECONDS, SEED)
+    scp = {}
+    for name, part in (("train", lines[:RUN_UTTS]), ("valid", lines[RUN_UTTS:])):
+        scp[name] = os.path.join(workdir, f"{name}.scp")
+        with open(scp[name], "w") as f:
+            f.write("\n".join(part))
+    hps.data.training_files, hps.data.validation_files = scp["train"], scp["valid"]
+    hps.train.log_interval, hps.train.eval_interval = RUN_LOG_INTERVAL, RUN_STEPS
+    hps.model_dir = os.path.join(workdir, "logs", "run")
+    os.makedirs(hps.model_dir)
+    hps.use_dur_dis = True
+    dataset = TextAudioSpeakerDataset(scp["train"], hps, load_spec=False)
+    sampler = BucketSampler(dataset.lengths, hps.train.batch_size, DEFAULT_BOUNDARIES)
+    audio_h = sum(dataset.lengths) * hps.data.hop_length / hps.data.sampling_rate / 3600
+    log(f"[run] corpus: {len(dataset)} training utterances ({audio_h * 60:.1f} audio min, "
+        f"{min(dataset.lengths)}-{max(dataset.lengths)} frames, text "
+        f"{min(dataset.text_lengths)}-{max(dataset.text_lengths)} vectors) in "
+        f"{len(sampler.buckets)} buckets (bounds {sampler.boundaries}), {len(sampler)} "
+        f"batches of {hps.train.batch_size} an epoch, {RUN_VALID} eval utterances; written "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    timed = {"save_all": [], "evaluate": []}
+    real = {k: getattr(loop, k) for k in timed}
+    kernel = mas.maximum_path_cuda
+    k2_calls = []  # each K2 launch of the runs: its inputs and its path, copied to the host
+
+    def recording(neg, t_ys, t_xs):
+        path = kernel(neg, t_ys, t_xs)
+        # non-blocking copies into pinned memory: no sync, no device memory held
+        k2_calls.append(tuple(t.to("cpu", non_blocking=True) for t in (neg, t_ys, t_xs, path)))
+        return path
+
+    def timing(name):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = real[name](*a, **k)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - start)
+            return out
+        return call
+
+    def drive(max_steps):
+        seen = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mas.counter.launches = 0                          # main path starts here
+        start = time.perf_counter()
+        state, steps = loop.run(hps, max_steps=max_steps, device=dev,
+                                log_cb=lambda s, m: seen.append((time.perf_counter(), s, m)))
+        torch.cuda.synchronize()
+        launches = mas.counter.launches                   # main path ends here
+        wall = time.perf_counter() - start
+        bad = [(s, k) for _, s, m in seen for k, v in m.items() if not np.isfinite(v)]
+        need = {"loss_disc_p", "loss_gen_p", "grad_norm_p", "loss_g_total", "loss_disc"}
+        if bad or not seen or any(need - set(m) for _, _, m in seen):
+            raise RuntimeError(f"run to step {max_steps}: non-finite or missing metrics {bad}")
+        return state, steps, launches, seen, wall, torch.cuda.max_memory_allocated() / 2 ** 30
+
+    for k in timed:
+        setattr(loop, k, timing(k))
+    mas.maximum_path_cuda = recording
+    try:
+        state, steps, launches_run, seen, wall, peak = drive(RUN_STEPS)
+        if steps != RUN_STEPS or state["step"] != RUN_STEPS or launches_run != RUN_STEPS:
+            raise RuntimeError(f"the run took {steps} steps (state {state['step']}), K2 "
+                               f"launched {launches_run} times; expected {RUN_STEPS} each")
+        window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
+        loop_ms = float(np.median(window))
+        for _, s, m in seen:
+            log(f"[run] step {s}: loss_g_total {m['loss_g_total']:.4f}, loss_disc "
+                f"{m['loss_disc']:.4f}, loss_disc_p {m['loss_disc_p']:.4f}, loss_gen_p "
+                f"{m['loss_gen_p']:.4f}, grad_norm_p {m['grad_norm_p']:.4f}; "
+                f"{m['audio_sec_per_s']:.1f} audio-s/s, input stall "
+                f"{m['input_stall_pct']:.2f}% over its {RUN_LOG_INTERVAL} steps")
+        leaves = _checkpoint_equals_state(hps.model_dir, state, RUN_STEPS)
+        log(f"[run] {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
+            f"included), K2 launches {launches_run}; step ms by window after the first "
+            f"{[round(w, 1) for w in window]}, median {loop_ms:.1f}; eval "
+            f"{timed['evaluate'][0]:.2f} s, save (G, D, P with AdamW state) "
+            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{RUN_STEPS}.npz "
+            f"read back equal to the live state ({leaves} leaves)")
+        del state
+        torch.cuda.empty_cache()
+
+        state, steps, launches, seen_r, wall, _ = drive(RUN_STEPS + RUN_RESUME)
+        if steps != RUN_STEPS + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
+            raise RuntimeError(f"the resume ended at step {steps} (state {state['step']}) with "
+                               f"{launches} K2 launches; expected step "
+                               f"{RUN_STEPS + RUN_RESUME}, {RUN_RESUME} launches")
+        log(f"[run] resumed at step {RUN_STEPS}, ended at {steps} in {wall:.1f} s (build, "
+            f"load and save included), K2 launches {launches}; step {seen_r[-1][1]} "
+            f"loss_g_total {seen_r[-1][2]['loss_g_total']:.4f}, loss_disc_p "
+            f"{seen_r[-1][2]['loss_disc_p']:.4f}; save {timed['save_all'][-1]:.2f} s")
+    finally:
+        for k, fn in real.items():
+            setattr(loop, k, fn)
+        mas.maximum_path_cuda = kernel
+    run_launches = launches_run + launches
+    mas_err = _run_mas_equal_plain(dev, k2_calls, run_launches)
+
+    # the bare step on the resumed state at the run's largest bucket shape
+    pf = Prefetcher(dataset, sampler, compact=True)
+    biggest = max(pf.epoch(1), key=lambda b: b["wav"].shape[1])
+    frames = (biggest["wav"].shape[1] - hps.data.filter_length) // hps.data.hop_length
+    audio_s = float(biggest.pop("wav_lengths").sum()) / hps.data.sampling_rate
+    batch = {k: v.to(dev) for k, v in biggest.items()}
+    step = loop.build_step(hps)
+    noise_gen = torch.Generator(device=dev).manual_seed(SEED)
+    times = []
+    for i in range(1 + BARE_STEPS):
+        noise = state["gen"].draw_noise(batch["x"].shape[0], batch["x"].shape[1], frames,
+                                        noise_gen)
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        state, metrics = step(state, batch, noise, 1e-4, 1e-4, 1e-4, 1e-4)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - start) * 1e3)
+        if not _finite(metrics):
+            raise RuntimeError("the bare step at the largest bucket gave non-finite losses")
+    bare_ms = float(np.median(times))
+    log(f"[run] the loop's median step {loop_ms:.1f} ms against the bare step at the run's "
+        f"largest bucket shape (B {batch['x'].shape[0]}, T_x {batch['x'].shape[1]}, "
+        f"{frames} frames, compact) {bare_ms:.1f} ms (median of {BARE_STEPS}, "
+        f"{audio_s / (bare_ms / 1e3):.1f} audio-s/s)")
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    # the CLI in a subprocess: one epoch of a small corpus, from scratch
+    cli_dir = os.path.join(workdir, "cli")
+    os.makedirs(cli_dir)
+    cfg = get_hparams_from_file(default_config_path("base")).to_dict()
+    cfg["data"]["training_files"] = os.path.join(cli_dir, "train.scp")
+    cfg["data"]["validation_files"] = os.path.join(cli_dir, "valid.scp")
+    cfg["train"]["epochs"] = 1
+    with open(cfg["data"]["training_files"], "w") as f:
+        f.write("\n".join(write_corpus(cli_dir, hps, CLI_UTTS, CLI_SECONDS, SEED + 1, "c")))
+    with open(os.path.join(cli_dir, "cli.json"), "w") as f:
+        json.dump(cfg, f)
+    env = {**os.environ, "PYTHONPATH": ROOT}
+    start = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "vits_tpu_torch.train", "-m", "cli", "-d", "-c",
+                        os.path.join(cli_dir, "cli.json")], cwd=cli_dir, env=env,
+                       capture_output=True, text=True, timeout=900)
+    cli_s = time.perf_counter() - start
+    cli_steps = len(BucketSampler(TextAudioSpeakerDataset(
+        cfg["data"]["training_files"], HParams(**cfg), load_spec=False).lengths,
+        hps.train.batch_size, DEFAULT_BOUNDARIES))
+    g = os.path.join(cli_dir, "logs", "cli", f"G_{cli_steps}.npz")
+    if r.returncode != 0 or not os.path.exists(g):
+        raise RuntimeError(f"the CLI exited {r.returncode}, {g} "
+                           f"{'written' if os.path.exists(g) else 'missing'}:\n"
+                           f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    written = sorted(f for f in os.listdir(os.path.dirname(g)) if f.endswith(".npz"))
+    log(f"[run] CLI `python -m vits_tpu_torch.train -m cli -d -c cli.json` (cuda, epochs 1, "
+        f"{CLI_UTTS} utterances of {CLI_SECONDS[0]}-{CLI_SECONDS[1]} s): exit 0 in "
+        f"{cli_s:.1f} s, {cli_steps} step(s), wrote {written}")
+    return run_launches, mas_err
+
+
 def _write_checkpoint(dirpath, hps_dict, dev_gen_seed):
     from vits_tpu_torch.config import HParams
     from vits_tpu_torch.convert import params_to_jax
     from vits_tpu_torch.models.synthesizer import Synthesizer
     from vits_tpu_torch.nn.core import init_weights
-    from vits_tpu_torch.utils.checkpoint import write_checkpoint
+    from vits_tpu_torch.utils.checkpoint import save_checkpoint
 
     synth = Synthesizer.from_hps(HParams(**hps_dict))
     init_weights(synth, torch.Generator().manual_seed(dev_gen_seed))
     with open(os.path.join(dirpath, "config.json"), "w") as f:
         json.dump(hps_dict, f)
     path = os.path.join(dirpath, "checkpoint.npz")
-    write_checkpoint(path, {"model": params_to_jax(synth.state_dict())})
+    save_checkpoint(path, {"model": params_to_jax(synth.state_dict())})
     return path
 
 
@@ -1298,6 +1585,9 @@ def main() -> int:
     mas_launches, _, _, _ = phase("training", phase_training, dev)
     if mas_launches <= 0:
         raise RuntimeError("the training path launched K2 no time")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        run_launches, run_mas_err = phase("run", phase_run, dev, workdir)
     card = card_line()
     main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
@@ -1329,8 +1619,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
-        "launches": mas_launches,
-        "max_abs_err": mas_err,
+        "launches": mas_launches + run_launches,
+        "max_abs_err": max(mas_err, run_mas_err),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1339,7 +1629,7 @@ def main() -> int:
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
         f"serving {launches}, fused {fused_launches}, servers {server_launches}, bf16 form "
-        f"{bf16_launches}; phases: "
+        f"{bf16_launches}; K2 launches: training {mas_launches}, run {run_launches}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -150,9 +150,9 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
     hps = get_hparams_from_file(default_config_path("base"))
     B, T_x, T_y = args.batch, cs.TRAIN_TX, cs.TRAIN_TY
-    synth, disc = build_models(hps)
-    gen_opt, disc_opt = build_optimizers(hps)
-    state = init_state(hps, synth, disc, gen_opt, disc_opt, seed=cs.SEED,
+    synth, disc, _ = build_models(hps)
+    gen_opt, disc_opt, _ = build_optimizers(hps)
+    state = init_state(hps, synth, disc, None, gen_opt, disc_opt, None, seed=cs.SEED,
                        device=dev)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     step = make_train_step(TrainStepConfig.from_hps(hps, dtype))

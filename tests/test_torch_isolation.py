@@ -34,8 +34,12 @@ def test_import_loads_no_jax_and_no_vits_tpu():
             "serving = {'vits_tpu_torch.' + m for m in ('vits_wrap', 'version',\n"
             "           'utils.torch_compat', 'serve.protocol', 'serve.socket_server',\n"
             "           'serve.http_server')}\n"
-            "print(len(mods), bad, serving - set(mods))\n"
-            "sys.exit(1 if bad or len(mods) < 34 or serving - set(mods) else 0)\n")
+            "training = {'vits_tpu_torch.' + m for m in ('config', 'utils.audio',\n"
+            "            'utils.checkpoint', 'utils.summary', 'train.data', 'train.loop',\n"
+            "            'train.step', 'train.__main__')}\n"
+            "missing = (serving | training) - set(mods)\n"
+            "print(len(mods), bad, missing)\n"
+            "sys.exit(1 if bad or len(mods) < 36 or missing else 0)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -98,7 +102,7 @@ def test_training_state_needs_a_gpu_unless_cpu_is_asked():
                             n_layers_q=1, hidden_size_d=4, n_flows=1, dilation_rate=(1,),
                             weight_norm=True)
         opt = Optimizer((0.8, 0.99), 1e-9, 0.0)
-        return synth, MultiPeriodDiscriminator(periods=(2,)), opt, opt
+        return synth, MultiPeriodDiscriminator(periods=(2,)), None, opt, opt, None
 
     hps = HParams(train={"seed": 3})
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -134,3 +138,23 @@ def test_chip_smoke_alone_fails(tmp_path):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_training_run_and_cli_need_a_gpu_unless_cpu_is_asked(tmp_path, monkeypatch):
+    """`loop.run` and `python -m vits_tpu_torch.train` without --device cpu
+    refuse with resolve_device's message before they build a model or read
+    data."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.train.__main__ import main
+    from vits_tpu_torch.train.loop import run
+    hps = get_hparams_from_file(default_config_path())
+    hps.model_dir = str(tmp_path / "run")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run(hps)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["-m", "cli"])
+    assert not os.path.exists(hps.model_dir)
+    assert sorted(os.listdir(tmp_path / "logs" / "cli")) == ["config.json"]

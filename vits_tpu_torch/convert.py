@@ -21,7 +21,24 @@ A {"g", "v"} pair goes to `weight_g`/`weight_v` when the target model has
 them (a training model, `Synthesizer.from_hps(hps, train=True)`, the
 discriminators) and is folded into `weight` otherwise (serving). The
 posterior encoder "enc_q" is dropped for a model without one. The
-discriminator tree is {"discriminators": {"0": S, "1".."5": P}}.
+discriminator tree is {"discriminators": {"0": S, "1".."5": P}}; the
+duration discriminator's {"pre_x", "pre_d", "convs": {"0".."3"}, "out"}.
+
+Optimizer state (`optimizer_to_jax` / `optimizer_from_jax`): the JAX
+package's optax `inject_hyperparams` AdamW state, path-flattened as its
+checkpoints hold it, <-> `torch.optim.AdamW`'s:
+
+  "0"                    the inject count          the step count
+  "1": {"learning_rate"} the last update's lr      param_groups' lr
+  "3": {"0": {"0"        Adam's count              each state's "step"
+              "1": tree  mu                        "exp_avg"
+              "2": tree  nu                        "exp_avg_sq"},
+        "1", "2"         empty states (the decay, which is stateless, and
+                         the lr scale), written as "__empty__" markers
+
+Each moment takes its parameter's layout transform. A parameter without
+torch state (torch makes it at the first step) is written as zeros with
+count 0.
 """
 
 from __future__ import annotations
@@ -73,7 +90,7 @@ def state_from_jax(tree: Dict[str, Any], keys: Optional[Set[str]] = None
     state: Dict[str, torch.Tensor] = {}
 
     def put(path, name, arr):
-        state[".".join(path + (name,))] = torch.tensor(np.ascontiguousarray(arr))
+        state[".".join(path + (name,))] = torch.tensor(np.array(arr, order="C"))  # 0-d kept
 
     def rec(node, path):
         if "v" in node and "g" in node:
@@ -141,3 +158,41 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
             node = node.setdefault(p, {})
         node[leaf] = arr.copy()  # C order, a 0-d leaf kept 0-d
     return tree
+
+
+def optimizer_to_jax(opt: torch.optim.Optimizer, model: nn.Module) -> Dict:
+    """The AdamW state `opt` keeps for `model`'s parameters, as the JAX
+    package's optimizer tree (numpy, its layouts)."""
+    mu, nu, counts = {}, {}, set()
+    for name, p in model.named_parameters():
+        st = opt.state.get(p, {})
+        if st:
+            counts.add(int(st["step"]))
+            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
+        else:
+            counts.add(0)
+            mu[name] = nu[name] = torch.zeros_like(p)
+    if len(counts) != 1:
+        raise ValueError(f"the parameters' step counts differ: {sorted(counts)}")
+    count = np.asarray(counts.pop(), np.int32)
+    empty = {"__empty__": np.zeros(0)}
+    return {"0": count.copy(),
+            "1": {"learning_rate": np.asarray(opt.param_groups[0]["lr"], np.float32)},
+            "3": {"0": {"0": count, "1": params_to_jax(mu), "2": params_to_jax(nu)},
+                  "1": dict(empty), "2": dict(empty)}}
+
+
+def optimizer_from_jax(tree: Dict, opt: torch.optim.Optimizer, model: nn.Module):
+    """Set `opt`'s state for `model`'s parameters from a JAX optimizer tree
+    (`optimizer_to_jax`'s layout): each moment in its parameter's layout,
+    on its device, the step count and the learning rate."""
+    adam = tree["3"]["0"]
+    keys = set(model.state_dict())
+    mu, nu = state_from_jax(adam["1"], keys), state_from_jax(adam["2"], keys)
+    step = float(np.asarray(adam["0"]))
+    for name, p in model.named_parameters():
+        opt.state[p] = {"step": torch.tensor(step, dtype=torch.float32),
+                        "exp_avg": mu[name].reshape(p.shape).to(p.device, p.dtype),
+                        "exp_avg_sq": nu[name].reshape(p.shape).to(p.device, p.dtype)}
+    for group in opt.param_groups:
+        group["lr"] = float(np.asarray(tree["1"]["learning_rate"]))

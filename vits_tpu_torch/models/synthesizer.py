@@ -88,6 +88,40 @@ class DurationPredictor(nn.Module):
         return _mask(x, x_mask)  # (B, T, 1) log-durations
 
 
+class DurationDiscriminator(nn.Module):
+    """The adversarial duration critic of the `-d` flag (vits_tpu
+    DurationDiscriminator, synthesizer.py:127): weight-norm 1x1 projections
+    of the text encoder's hidden states (`pre_x`) and of a log-duration
+    (`pre_d`), four weight-norm convs with leaky ReLU 0.1 over their
+    concatenation, and a plain 1x1 `out` conv to one score per token. x is
+    detached here, as the JAX package stops its gradient: a generator loss
+    through this module reaches the generator only through the
+    log-durations."""
+
+    def __init__(self, in_channels: int, filter_channels: int = 128, kernel_size: int = 5):
+        super().__init__()
+        f, k = filter_channels, kernel_size
+        self.pre_x = Conv1d(in_channels, f, 1, weight_norm=True)
+        self.pre_d = Conv1d(1, f, 1, weight_norm=True)
+        self.convs = nn.ModuleDict({
+            str(i): Conv1d(2 * f if i == 0 else f, f, k, padding=k // 2, weight_norm=True)
+            for i in range(4)})
+        self.out = Conv1d(f, 1, 1)
+
+    def _score(self, x, x_mask, d):
+        h = torch.cat([x, self.pre_d(d)], dim=-1)
+        for conv in self.convs.values():
+            h = leaky_relu(conv(_mask(h, x_mask)), 0.1)
+        return _mask(self.out(_mask(h, x_mask)), x_mask)
+
+    def forward(self, x, x_mask, d_real, d_fake):
+        """x (B, T, in_channels), x_mask (B, T, 1), d_real / d_fake (B, T, 1)
+        log-durations -> ([score of d_real], [score of d_fake]), each
+        (B, T, 1)."""
+        x = self.pre_x(x.detach())
+        return [self._score(x, x_mask, d_real)], [self._score(x, x_mask, d_fake)]
+
+
 class TextEncoder(nn.Module):
     """Dense + LN embedding of float text vectors, 1024-d emotion projection,
     learned-alpha sinusoidal positions, transformer stack, conv projection to

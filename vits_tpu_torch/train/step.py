@@ -1,6 +1,7 @@
 """The mel/MPD GAN training step (counterpart of vits_tpu/train/step.py,
-`variant="mel"` without the duration discriminator; the stft/MRD variant is
-not ported yet), in float32 or in the configured bfloat16.
+`variant="mel"`, with the duration discriminator of the `-d` flag; the
+stft/MRD variant is not ported yet), in float32 or in the configured
+bfloat16.
 
 One step, as the JAX package's: the generator forward runs once under
 autograd; the discriminator step runs first on `y_hat.detach()` (D loss,
@@ -11,6 +12,16 @@ parameters are frozen (`requires_grad_(False)`) while the generator loss
 runs, so its gradients from that loss are never formed and cannot leak into
 the next discriminator step. Gradients are not clipped; their global norms
 are reported (`clip_grad_value`).
+
+With the duration discriminator (`TrainStepConfig.use_dur_dis`), its own D
+step follows the MPD's, on the detached text hidden states and predicted
+log-durations against the MAS ones, at `lr_p`; the generator loss then adds
+its LSGAN term against the UPDATED duration discriminator, frozen, whose
+gradient reaches the generator only through the predicted log-durations.
+Without it the step computes exactly what it computes without the flag's
+code.
+
+A compact batch's int16 wav is dequantized at 1/32767, the collate's scale.
 
 Compute dtype (`TrainStepConfig.compute_dtype`, from `hps.train.bf16_run`
 as the JAX package's loop sets it): the JAX step's mixed precision. The
@@ -74,42 +85,53 @@ class TrainStepConfig:
     c_dur: float = 2.0
     c_kl: float = 1.0
     c_kl_q: float = 0.01
+    use_dur_dis: bool = False
     compute_dtype: torch.dtype = torch.float32
 
     @classmethod
-    def from_hps(cls, hps, compute_dtype: Optional[torch.dtype] = None):
+    def from_hps(cls, hps, compute_dtype: Optional[torch.dtype] = None,
+                 use_dur_dis: Optional[bool] = None):
         """The config's step; compute_dtype None takes it from
-        `train.bf16_run` (`compute_dtype_of`)."""
+        `train.bf16_run` (`compute_dtype_of`), use_dur_dis None from the
+        CLI's `hps.use_dur_dis` (default off)."""
         t, d = hps.train, hps.data
         if compute_dtype is None:
             compute_dtype = compute_dtype_of(hps)
+        if use_dur_dis is None:
+            use_dur_dis = bool(getattr(hps, "use_dur_dis", False))
         return cls(segment_frames=t.segment_size // d.hop_length,
                    hop_length=d.hop_length, filter_length=d.filter_length,
                    win_length=d.win_length, n_mel_channels=d.n_mel_channels,
                    sampling_rate=d.sampling_rate, mel_fmin=d.mel_fmin, mel_fmax=d.mel_fmax,
                    c_mel=t.c_mel, c_dur=t.c_dur, c_kl=t.c_kl, c_kl_q=t.c_kl_q,
-                   compute_dtype=compute_dtype)
+                   use_dur_dis=use_dur_dis, compute_dtype=compute_dtype)
 
 
 def make_train_step(cfg: TrainStepConfig):
-    """The step `(state, batch, noise, lr_g, lr_d, align_noise) -> (state,
-    metrics)`.
+    """The step `(state, batch, noise, lr_g, lr_d, align_noise, lr_p=1e-4)
+    -> (state, metrics)`.
 
     state: {"gen": Synthesizer (train=True), "disc": MultiPeriodDiscriminator,
     "gen_opt", "disc_opt": their optimizer states (`Optimizer.init`), "step":
-    int, "rng": the dropout generator}. batch: {"x", "x_lengths", "spec",
+    int, "rng": the dropout generator; with use_dur_dis also "dur": the
+    DurationDiscriminator and "dur_opt"}. batch: {"x", "x_lengths", "spec",
     "spec_lengths", "wav", "emo", "sid"} on the models' device, x (B, T_x,
     C), spec (B, T_y, F) (optional: without it the spectrogram is computed
     from the wav, which then carries filter_length extra samples), wav
-    (B, T) float. noise: `Synthesizer.draw_noise`. Dropout runs where the
-    modules are in training mode. metrics are detached tensors on the
-    device, the JAX step's keys."""
+    (B, T) float, or int16 from a compact batch. noise:
+    `Synthesizer.draw_noise`. Dropout runs where the modules are in
+    training mode. metrics are detached tensors on the device, the JAX
+    step's keys."""
     def train_step(state: Dict, batch: Dict[str, torch.Tensor],
                    noise: Dict[str, torch.Tensor], lr_g: float, lr_d: float,
-                   align_noise: float):
+                   align_noise: float, lr_p: float = 1e-4):
         synth, disc = state["gen"], state["disc"]
         cd = cfg.compute_dtype
-        wav = batch["wav"].float()
+        wav = batch["wav"]
+        if wav.dtype == torch.int16:
+            wav = wav.float() * (1.0 / 32767.0)
+        else:
+            wav = wav.float()
         if "spec" in batch:
             spec = batch["spec"].float()
         else:
@@ -136,6 +158,18 @@ def make_train_step(cfg: TrainStepConfig):
         grad_norm_d = clip_grad_value(disc.parameters())
         Optimizer.update(state["disc_opt"], lr_d)
 
+        # ---------------- duration discriminator D step (train.py:205,215-220)
+        if cfg.use_dur_dis:
+            dur = state["dur"]
+            dur.requires_grad_(True)
+            p_r, p_g = cast_call(dur, cd, out["x_hidden"].detach(), out["x_mask"],
+                                 out["logw_"], out["logw"].detach())
+            loss_disc_p, losses_p_r, losses_p_g = L.discriminator_loss(p_r, p_g)
+            state["dur_opt"].zero_grad(set_to_none=True)
+            loss_disc_p.backward()
+            grad_norm_p = clip_grad_value(dur.parameters())
+            Optimizer.update(state["dur_opt"], lr_p)
+
         # ---------------- G step (train.py:222-242) ----------------
         disc.requires_grad_(False)
         loss_dur = torch.sum(out["l_length"].float()) * cfg.c_dur
@@ -155,9 +189,17 @@ def make_train_step(cfg: TrainStepConfig):
         loss_fm = L.feature_loss(fmap_r, fmap_g)
         loss_gen, gen_losses = L.generator_loss(y_d_g)
         loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_kl_q
+        if cfg.use_dur_dis:
+            dur.requires_grad_(False)
+            _, p_g = cast_call(dur, cd, out["x_hidden"], out["x_mask"], out["logw_"],
+                               out["logw"])
+            loss_gen_p, losses_gen_p = L.generator_loss(p_g)
+            loss_all = loss_all + loss_gen_p
         state["gen_opt"].zero_grad(set_to_none=True)
         loss_all.backward()
         disc.requires_grad_(True)
+        if cfg.use_dur_dis:
+            dur.requires_grad_(True)
         grad_norm_g = clip_grad_value(synth.parameters())
         Optimizer.update(state["gen_opt"], lr_g)
         state["step"] += 1
@@ -173,6 +215,11 @@ def make_train_step(cfg: TrainStepConfig):
             "viz_mel_org": y_mel[0], "viz_mel_gen": y_hat_mel[0], "viz_mel_all": mel_full[0],
             "viz_attn": out["attn"][0],
         }
+        if cfg.use_dur_dis:
+            metrics.update({
+                "loss_disc_p": loss_disc_p, "grad_norm_p": grad_norm_p,
+                "losses_p_r": torch.stack(losses_p_r), "losses_p_g": torch.stack(losses_p_g),
+                "loss_gen_p": loss_gen_p, "losses_p": torch.stack(losses_gen_p)})
         return state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
