@@ -83,6 +83,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 do not depend on the MAS path (D, GAN, feature, mel, D's
                 gradient norm) within 3e-2, the path's moved cells and the
                 other losses printed (bf16 neg_cent's rounding moves it);
+     training_stft - the same for the stft/MRD variant's step
+                (MultiWaveSTFTDiscriminator with spectral norm, RAdam for
+                D, the multi-resolution STFT loss): both precisions in
+                turns, K2 once per step, finite losses, moved parameters and
+                every u of the MRD advanced; its medians against the mel
+                step's in this call; the card-vs-CPU step at B = 2 with the
+                same rules, the bf16 one holding the D, GAN and STFT losses
+                and D's gradient norm;
   8. run      - `loop.run` on the card at full width with the duration
                 discriminator (-d), in the configured bf16, batch 32, over
                 a synthetic corpus written at the base widths (96
@@ -96,12 +104,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 audio-s/s, input stall, eval and save seconds, peak memory;
                 then `python -m vits_tpu_torch.train -d` as a subprocess for
                 one epoch of a 16-utterance corpus;
+     run_stft - the same for `loop.run(variant="stft")` on the same corpus:
+                4 steps with an eval and a save (G/D/P_4.npz, with RAdam's
+                state and every u, read back equal to the live state), a
+                resume for 2, every K2 launch held bit-exact against the
+                plain search, the bare stft step at the largest bucket, and
+                `python -m vits_tpu_torch.train_stft -d` as a subprocess for
+                one step;
   9. card     - print the card's name and power limit.
 Each phase prints the seconds it took. K1's launches in the kernels line are
 those of the serving, fused and server phases, each read with the counter set
 to 0 just before the path runs and read just after; its bf16 form's those of
-the bf16 phase, and K2's those of both precisions' training steps and of the
-run and its resume.
+the bf16 phase, and K2's those of both precisions' training steps of both
+variants and of both runs and their resumes.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -442,14 +457,17 @@ def _state_bytes(state) -> int:
     return n
 
 
-LOSS_KEYS = ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_dur", "loss_kl",
-             "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g")
+LOSS_KEYS = {"mel": ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "loss_dur", "loss_kl",
+                     "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g"),
+             "stft": ("loss_disc", "loss_gen", "loss_stft", "loss_dur", "loss_kl",
+                      "loss_kl_q", "loss_g_total", "grad_norm_d", "grad_norm_g")}
 # the step's numbers that do not depend on the MAS path: the decoder decodes a
 # slice of the posterior latent, and D sees only that and the waveform
-PATH_FREE = ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "grad_norm_d")
+PATH_FREE = {"mel": ("loss_disc", "loss_gen", "loss_fm", "loss_mel", "grad_norm_d"),
+             "stft": ("loss_disc", "loss_gen", "loss_stft", "grad_norm_d")}
 
 
-def _card_vs_cpu(dev, step, opts, synth, disc, batch, noise, lr, dtype):
+def _card_vs_cpu(dev, step, opts, synth, disc, batch, noise, lr, dtype, keys):
     """One step at B = 2 on the card and on the CPU from the same weights and
     noise, dropout off (eval mode) so both run one function. Returns (cells
     on the card's MAS path, cells where the CPU's differs, {loss: (card,
@@ -476,19 +494,27 @@ def _card_vs_cpu(dev, step, opts, synth, disc, batch, noise, lr, dtype):
         del g_m, d_m, st
     (a_gpu, m_gpu, _), (a_cpu, m_cpu, cpu_s) = runs["cuda"], runs["cpu"]
     return (int(a_gpu.sum()), int((a_gpu != a_cpu).sum()),
-            {k: (float(m_gpu[k]), float(m_cpu[k])) for k in LOSS_KEYS}, cpu_s)
+            {k: (float(m_gpu[k]), float(m_cpu[k])) for k in keys}, cpu_s)
 
 
-def phase_training(dev):
-    """The base config's mel/MPD step at full width in both precisions, in
-    turns: the configured bf16 step (train.bf16_run) and the fp32 one, each
-    from the same seeded weights; K2 launches once per step."""
+def _u_buffers(module):
+    """Spectral norm's u of more than one element (a one-element u is +-1)."""
+    return [b for n, b in module.named_buffers() if n.endswith("weight_u") and b.numel() > 1]
+
+
+def phase_training(dev, variant="mel", mel_med=None):
+    """The base config's step of `variant` (the mel/MPD one, or the
+    stft/MRD one against `mel_med`, the mel step's medians in this call) at
+    full width in both precisions, in turns: the configured bf16 step
+    (train.bf16_run) and the fp32 one, each from the same seeded weights; K2
+    launches once per step."""
     from vits_tpu_torch.config import default_config_path, get_hparams_from_file
     from vits_tpu_torch.ops import mas
     from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
                                            build_step, count_params, init_state)
     from vits_tpu_torch.train.step import TrainStepConfig
 
+    tag = "[training]" if variant == "mel" else "[training_stft]"
     hps = get_hparams_from_file(default_config_path("base"))
     B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
     if TrainStepConfig.from_hps(hps).compute_dtype != torch.bfloat16:
@@ -496,21 +522,26 @@ def phase_training(dev):
     t0 = time.perf_counter()
     runs = {}
     for name, dtype in (("fp32", torch.float32), ("bf16", None)):
-        synth, disc, _ = build_models(hps)
-        gen_opt, disc_opt, _ = build_optimizers(hps)
+        synth, disc, _ = build_models(hps, variant)
+        gen_opt, disc_opt, _ = build_optimizers(hps, variant)
         state = init_state(hps, synth, disc, None, gen_opt, disc_opt, None, seed=SEED,
                            device=dev)
-        runs[name] = {"state": state, "step": build_step(hps, dtype), "times": [], "peak": 0.0,
-                      "work": 0.0}
+        runs[name] = {"state": state, "step": build_step(hps, dtype, variant), "times": [],
+                      "peak": 0.0, "work": 0.0,
+                      "u0": [u.clone() for u in _u_buffers(state["disc"])]}
     synth = runs["fp32"]["state"]["gen"]
     m = hps.model
-    log(f"[training] base config at full width (gin {m.gin_channels}, "
+    disc = runs["fp32"]["state"]["disc"]
+    d_name = ("MPD periods 2/3/5/7/11" if variant == "mel" else
+              f"MRD of 5 wave levels and 5 STFT resolutions (ffts 128-2048) over the "
+              f"{hps.train.segment_size}-sample segment, spectral-normed, RAdam")
+    log(f"{tag} base config at full width (gin {m.gin_channels}, "
         f"{hps.data.n_speakers} speakers, posterior {m.n_layers_q} layers, decoder "
-        f"{m.upsample_initial_channel}->{m.upsample_initial_channel // 16} channels, MPD "
-        f"periods 2/3/5/7/11): G {count_params(synth)} parameters (+ enc_q and weight-norm "
-        f"gains: {count_params(synth, exclude=())}), D "
-        f"{count_params(runs['fp32']['state']['disc'], exclude=())}; two states (fp32 and the "
-        f"configured bf16 step) built and initialised in {time.perf_counter() - t0:.1f} s")
+        f"{m.upsample_initial_channel}->{m.upsample_initial_channel // 16} channels, "
+        f"{d_name}): G {count_params(synth)} parameters (+ enc_q and weight-norm "
+        f"gains: {count_params(synth, exclude=())}), D {count_params(disc)} (with weight-norm "
+        f"gains: {count_params(disc, exclude=())}); two states (fp32 and the configured bf16 "
+        f"step) built and initialised in {time.perf_counter() - t0:.1f} s")
     batch = _bench_batch(hps, dev, B, T_x, T_y)
     hop, sr = hps.data.hop_length, hps.data.sampling_rate
     audio_s = float(batch["spec_lengths"].sum()) * hop / sr
@@ -523,6 +554,7 @@ def phase_training(dev):
             state = run["state"]
             params = {k: [p.detach().clone() for p in state[k].parameters()]
                       for k in ("gen", "disc")}
+            params["u"] = [u.clone() for u in _u_buffers(state["disc"])]
             before = mas.counter.launches
             torch.cuda.synchronize()
             start_bytes = torch.cuda.memory_allocated()
@@ -536,40 +568,58 @@ def phase_training(dev):
             moved = {k: any(not torch.equal(a, p) for a, p in zip(params[k],
                                                                   state[k].parameters()))
                      for k in ("gen", "disc")}
+            # the MRD's u advance by their power iteration each step (a u that
+            # has converged stays put; every u has moved over the phase, below)
+            moved["u"] = not params["u"] or any(
+                not torch.equal(a, u) for a, u in zip(params["u"], _u_buffers(state["disc"])))
             if launched != 1:
-                raise RuntimeError(f"{name} training step {i}: K2 launched {launched} times, "
+                raise RuntimeError(f"{name} {variant} step {i}: K2 launched {launched} times, "
                                    f"expected 1")
             if not _finite(metrics):
-                raise RuntimeError(f"{name} training step {i}: non-finite losses "
+                raise RuntimeError(f"{name} {variant} step {i}: non-finite losses "
                                    f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
             if not all(moved.values()):
-                raise RuntimeError(f"{name} training step {i}: parameters did not change: "
-                                   f"{moved}")
+                raise RuntimeError(f"{name} {variant} step {i}: parameters or u did not "
+                                   f"change: {moved}")
             run["resident"] = _state_bytes(state) / 2 ** 30
             if i:
                 run["times"].append(ms)
                 run["peak"] = max(run["peak"], torch.cuda.max_memory_allocated() / 2 ** 30)
                 run["work"] = max(run["work"], (torch.cuda.max_memory_allocated()
                                                 - start_bytes) / 2 ** 30)
-            log(f"[training] {name} step {i} {'warm-up' if i == 0 else 'timed  '}: {ms:.1f} ms, "
+            rec = "loss_mel" if variant == "mel" else "loss_stft"
+            log(f"{tag} {name} step {i} {'warm-up' if i == 0 else 'timed  '}: {ms:.1f} ms, "
                 f"K2 launches {launched}, loss_g_total {float(metrics['loss_g_total']):.4f}, "
-                f"loss_disc {float(metrics['loss_disc']):.4f}, loss_mel "
-                f"{float(metrics['loss_mel']):.4f}, grad_norm_g "
+                f"loss_disc {float(metrics['loss_disc']):.4f}, {rec} "
+                f"{float(metrics[rec]):.4f}, grad_norm_g "
                 f"{float(metrics['grad_norm_g']):.4f} (losses finite)")
             del params
     main_launches = mas.counter.launches     # main path ends here
+    for name, run in runs.items():
+        still = [i for i, (a, u) in enumerate(zip(run["u0"], _u_buffers(run["state"]["disc"])))
+                 if torch.equal(a, u)]
+        if still:
+            raise RuntimeError(f"{name} {variant}: u {still} of {len(run['u0'])} never moved")
+    if variant == "stft":
+        log(f"{tag} every spectral-norm u of more than one element moved over the steps "
+            f"({len(runs['fp32']['u0'])} in each state)")
     med = {}
     for name, run in runs.items():
         t = run["times"]
         med[name] = float(np.median(t))
-        log(f"[training] {name}: {TRAIN_STEPS} timed steps, median {med[name]:.1f} ms (min "
+        log(f"{tag} {name}: {TRAIN_STEPS} timed steps, median {med[name]:.1f} ms (min "
             f"{min(t):.1f}, max {max(t):.1f}), {audio_s / (med[name] / 1e3):.1f} audio-s/s "
             f"({audio_s:.2f} audio s per step); peak memory {run['peak']:.2f} GiB with both "
             f"states resident, the step's own {run['resident'] + run['work']:.2f} GiB (its "
             f"state {run['resident']:.2f} + the step's working memory {run['work']:.2f})")
-    log(f"[training] bf16 against fp32, in turns: median {med['bf16']:.1f} against "
+    log(f"{tag} bf16 against fp32, in turns: median {med['bf16']:.1f} against "
         f"{med['fp32']:.1f} ms ({med['fp32'] / med['bf16']:.2f}x); K2 launches on the main "
         f"path {main_launches} in {2 * (1 + TRAIN_STEPS)} steps")
+    if mel_med:
+        log(f"{tag} against the mel step in this call: fp32 {med['fp32']:.1f} against "
+            f"{mel_med['fp32']:.1f} ms ({med['fp32'] / mel_med['fp32']:.2f}x), bf16 "
+            f"{med['bf16']:.1f} against {mel_med['bf16']:.1f} ms "
+            f"({med['bf16'] / mel_med['bf16']:.2f}x)")
 
     # one step of each precision on the card against the same step on the
     # CPU: B = 2, the same weights (the fp32 run's) and noise. In fp32 every
@@ -580,12 +630,13 @@ def phase_training(dev):
     # do not depend on it are held, the others are printed
     small = {k: v[:2] for k, v in batch.items()}
     noise = {k: v[:2] for k, v in synth.draw_noise(B, T_x, T_y, noise_gen).items()}
-    disc = runs["fp32"]["state"]["disc"]
+    all_keys = LOSS_KEYS[variant]
     for name, dtype, rtol, atol, keys in (
-            ("fp32", torch.float32, LOSS_RTOL, LOSS_ATOL, LOSS_KEYS),
-            ("bf16", torch.bfloat16, BF16_LOSS_RTOL, BF16_LOSS_ATOL, PATH_FREE)):
+            ("fp32", torch.float32, LOSS_RTOL, LOSS_ATOL, all_keys),
+            ("bf16", torch.bfloat16, BF16_LOSS_RTOL, BF16_LOSS_ATOL, PATH_FREE[variant])):
         cells, differ, losses, cpu_s = _card_vs_cpu(
-            dev, runs[name]["step"], build_optimizers(hps)[:2], synth, disc, small, noise, lr, dtype)
+            dev, runs[name]["step"], build_optimizers(hps, variant)[:2], synth, disc, small,
+            noise, lr, dtype, all_keys)
         rel = {k: abs(a - c) / max(abs(c), atol / rtol) for k, (a, c) in losses.items()}
         bad = [k for k in keys if not abs(losses[k][0] - losses[k][1])
                <= atol + rtol * abs(losses[k][1])]
@@ -594,18 +645,19 @@ def phase_training(dev):
                                f"({ {k: losses[k] for k in bad} }), {differ} path cells differ")
         worst = max(keys, key=rel.get)
         held = "the losses" if name == "fp32" else "the path-free losses " + "/".join(keys)
-        log(f"[training] {name} step, card vs CPU at B = 2 (CPU {cpu_s:.1f} s): MAS paths "
+        log(f"{tag} {name} step, card vs CPU at B = 2 (CPU {cpu_s:.1f} s): MAS paths "
             f"{'equal' if not differ else f'differ in {differ} cells'} ({cells} cells on the "
             f"card's path); largest relative difference of {held} {rel[worst]:.2e} ({worst}; "
             f"tol {rtol:.0e})"
             + ("" if name == "fp32" else "; path-dependent: " + ", ".join(
-                f"{k} {rel[k]:.2e}" for k in LOSS_KEYS if k not in keys)))
+                f"{k} {rel[k]:.2e}" for k in all_keys if k not in keys)))
     return main_launches, med, audio_s, {k: r["peak"] for k, r in runs.items()}
 
 
 RUN_UTTS, RUN_VALID = 96, 4  # the [run] phase's corpus: 2-12 s utterances, and eval ones
 RUN_SECONDS = (2.0, 11.9)     # below the base config's max_wav_len of 12 s
 RUN_STEPS, RUN_RESUME = 8, 2  # the run's steps (one eval and one save, at its last), the resume's
+RUN_STEPS_STFT = 4            # ... the stft run's
 RUN_LOG_INTERVAL = 2
 CLI_UTTS, CLI_SECONDS = 16, (2.0, 3.5)  # the CLI's corpus: one bucket, one step an epoch
 BARE_STEPS = 3                # the bare step at the run's largest bucket, after 1 warm-up
@@ -664,7 +716,7 @@ def _checkpoint_equals_state(model_dir, state, step) -> int:
     return n
 
 
-def _run_mas_equal_plain(dev, calls, launches) -> float:
+def _run_mas_equal_plain(dev, calls, launches, tag="[run]") -> float:
     """The run's K2 launches (inputs and paths recorded on the host) against
     the plain search on the same inputs: each path bit-exact, one path step a
     frame; then each distinct shape's plan and device time. Launches made
@@ -687,52 +739,55 @@ def _run_mas_equal_plain(dev, calls, launches) -> float:
         p = mas.plan(B, T_y, T_x)
         ms = graph_ms(lambda: mas.maximum_path_cuda(neg, ty, tx))
         bound = mas.mas_bytes(ty, tx, T_y, T_x) / HBM_BW * 1e3
-        log(f"[run] K2 at ({B}, {T_y}, {T_x}): form {p.form} R={p.R} D={p.D}: kernel "
+        log(f"{tag} K2 at ({B}, {T_y}, {T_x}): form {p.form} R={p.R} D={p.D}: kernel "
             f"{ms:.4f} ms, bound {bound:.3e} ms (bytes; {100 * bound / ms:.1f}% of it)")
-    log(f"[run] K2's {len(calls)} launches of the runs, at {len(shapes)} shapes "
+    log(f"{tag} K2's {len(calls)} launches of the runs, at {len(shapes)} shapes "
         f"{sorted(shapes)}, bit-exact against the plain search (max_abs_err {err:.1e})")
     return err
 
 
-def phase_run(dev, workdir):
-    """`loop.run` on the card at the base config's full width with the
-    duration discriminator, in the configured bf16, batch 32, over a
-    synthetic corpus: RUN_STEPS steps with one eval and one save at the
+def phase_run(dev, workdir, variant="mel"):
+    """`loop.run` of `variant` on the card at the base config's full width
+    with the duration discriminator, in the configured bf16, batch 32, over
+    a synthetic corpus (written once into `workdir`): RUN_STEPS steps
+    (RUN_STEPS_STFT for the stft variant) with one eval and one save at the
     last, its checkpoints read back equal to the live state, then a resume
     for RUN_RESUME steps; K2 launched once per step of each; the bare step
     at the run's largest bucket shape timed on the resumed state; then the
-    CLI (`python -m vits_tpu_torch.train -d`) as a subprocess for one epoch
-    of a small corpus. Every K2 launch of the two runs is held against the
-    plain search on the same input, bit-exact (`_run_mas_equal_plain`).
-    Returns K2's launches in the two runs, as counted, and its largest
-    difference from the plain search."""
+    CLI (`python -m vits_tpu_torch.train -d`, or `vits_tpu_torch.train_stft`)
+    as a subprocess for one epoch of a small corpus. Every K2 launch of the
+    two runs is held against the plain search on the same input, bit-exact
+    (`_run_mas_equal_plain`). Returns K2's launches in the two runs, as
+    counted, and its largest difference from the plain search."""
     from vits_tpu_torch.config import HParams, default_config_path, get_hparams_from_file
     from vits_tpu_torch.ops import mas
     from vits_tpu_torch.train import loop
     from vits_tpu_torch.train.data import (DEFAULT_BOUNDARIES, BucketSampler, Prefetcher,
                                            TextAudioSpeakerDataset)
 
+    tag, suffix = ("[run]", "") if variant == "mel" else ("[run_stft]", "_stft")
+    run_steps = RUN_STEPS if variant == "mel" else RUN_STEPS_STFT
     hps = get_hparams_from_file(default_config_path("base"))
     t0 = time.perf_counter()
-    lines = write_corpus(workdir, hps, RUN_UTTS + RUN_VALID, RUN_SECONDS, SEED)
-    scp = {}
-    for name, part in (("train", lines[:RUN_UTTS]), ("valid", lines[RUN_UTTS:])):
-        scp[name] = os.path.join(workdir, f"{name}.scp")
-        with open(scp[name], "w") as f:
-            f.write("\n".join(part))
+    scp = {name: os.path.join(workdir, f"{name}.scp") for name in ("train", "valid")}
+    if not os.path.exists(scp["train"]):
+        lines = write_corpus(workdir, hps, RUN_UTTS + RUN_VALID, RUN_SECONDS, SEED)
+        for name, part in (("train", lines[:RUN_UTTS]), ("valid", lines[RUN_UTTS:])):
+            with open(scp[name], "w") as f:
+                f.write("\n".join(part))
     hps.data.training_files, hps.data.validation_files = scp["train"], scp["valid"]
-    hps.train.log_interval, hps.train.eval_interval = RUN_LOG_INTERVAL, RUN_STEPS
-    hps.model_dir = os.path.join(workdir, "logs", "run")
+    hps.train.log_interval, hps.train.eval_interval = RUN_LOG_INTERVAL, run_steps
+    hps.model_dir = os.path.join(workdir, "logs", "run" + suffix)
     os.makedirs(hps.model_dir)
     hps.use_dur_dis = True
     dataset = TextAudioSpeakerDataset(scp["train"], hps, load_spec=False)
     sampler = BucketSampler(dataset.lengths, hps.train.batch_size, DEFAULT_BOUNDARIES)
     audio_h = sum(dataset.lengths) * hps.data.hop_length / hps.data.sampling_rate / 3600
-    log(f"[run] corpus: {len(dataset)} training utterances ({audio_h * 60:.1f} audio min, "
+    log(f"{tag} corpus: {len(dataset)} training utterances ({audio_h * 60:.1f} audio min, "
         f"{min(dataset.lengths)}-{max(dataset.lengths)} frames, text "
         f"{min(dataset.text_lengths)}-{max(dataset.text_lengths)} vectors) in "
         f"{len(sampler.buckets)} buckets (bounds {sampler.boundaries}), {len(sampler)} "
-        f"batches of {hps.train.batch_size} an epoch, {RUN_VALID} eval utterances; written "
+        f"batches of {hps.train.batch_size} an epoch, {RUN_VALID} eval utterances; ready "
         f"in {time.perf_counter() - t0:.1f} s")
 
     timed = {"save_all": [], "evaluate": []}
@@ -762,7 +817,7 @@ def phase_run(dev, workdir):
         torch.cuda.reset_peak_memory_stats()
         mas.counter.launches = 0                          # main path starts here
         start = time.perf_counter()
-        state, steps = loop.run(hps, max_steps=max_steps, device=dev,
+        state, steps = loop.run(hps, variant=variant, max_steps=max_steps, device=dev,
                                 log_cb=lambda s, m: seen.append((time.perf_counter(), s, m)))
         torch.cuda.synchronize()
         launches = mas.counter.launches                   # main path ends here
@@ -777,34 +832,35 @@ def phase_run(dev, workdir):
         setattr(loop, k, timing(k))
     mas.maximum_path_cuda = recording
     try:
-        state, steps, launches_run, seen, wall, peak = drive(RUN_STEPS)
-        if steps != RUN_STEPS or state["step"] != RUN_STEPS or launches_run != RUN_STEPS:
+        state, steps, launches_run, seen, wall, peak = drive(run_steps)
+        if steps != run_steps or state["step"] != run_steps or launches_run != run_steps:
             raise RuntimeError(f"the run took {steps} steps (state {state['step']}), K2 "
-                               f"launched {launches_run} times; expected {RUN_STEPS} each")
+                               f"launched {launches_run} times; expected {run_steps} each")
         window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
         loop_ms = float(np.median(window))
         for _, s, m in seen:
-            log(f"[run] step {s}: loss_g_total {m['loss_g_total']:.4f}, loss_disc "
+            log(f"{tag} step {s}: loss_g_total {m['loss_g_total']:.4f}, loss_disc "
                 f"{m['loss_disc']:.4f}, loss_disc_p {m['loss_disc_p']:.4f}, loss_gen_p "
                 f"{m['loss_gen_p']:.4f}, grad_norm_p {m['grad_norm_p']:.4f}; "
                 f"{m['audio_sec_per_s']:.1f} audio-s/s, input stall "
                 f"{m['input_stall_pct']:.2f}% over its {RUN_LOG_INTERVAL} steps")
-        leaves = _checkpoint_equals_state(hps.model_dir, state, RUN_STEPS)
-        log(f"[run] {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
+        leaves = _checkpoint_equals_state(hps.model_dir, state, run_steps)
+        opts = "AdamW" if variant == "mel" else "AdamW for G, RAdam for D and P, and u"
+        log(f"{tag} {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
             f"included), K2 launches {launches_run}; step ms by window after the first "
             f"{[round(w, 1) for w in window]}, median {loop_ms:.1f}; eval "
-            f"{timed['evaluate'][0]:.2f} s, save (G, D, P with AdamW state) "
-            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{RUN_STEPS}.npz "
+            f"{timed['evaluate'][0]:.2f} s, save (G, D, P with {opts} state) "
+            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{run_steps}.npz "
             f"read back equal to the live state ({leaves} leaves)")
         del state
         torch.cuda.empty_cache()
 
-        state, steps, launches, seen_r, wall, _ = drive(RUN_STEPS + RUN_RESUME)
-        if steps != RUN_STEPS + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
+        state, steps, launches, seen_r, wall, _ = drive(run_steps + RUN_RESUME)
+        if steps != run_steps + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
             raise RuntimeError(f"the resume ended at step {steps} (state {state['step']}) with "
                                f"{launches} K2 launches; expected step "
-                               f"{RUN_STEPS + RUN_RESUME}, {RUN_RESUME} launches")
-        log(f"[run] resumed at step {RUN_STEPS}, ended at {steps} in {wall:.1f} s (build, "
+                               f"{run_steps + RUN_RESUME}, {RUN_RESUME} launches")
+        log(f"{tag} resumed at step {run_steps}, ended at {steps} in {wall:.1f} s (build, "
             f"load and save included), K2 launches {launches}; step {seen_r[-1][1]} "
             f"loss_g_total {seen_r[-1][2]['loss_g_total']:.4f}, loss_disc_p "
             f"{seen_r[-1][2]['loss_disc_p']:.4f}; save {timed['save_all'][-1]:.2f} s")
@@ -813,7 +869,7 @@ def phase_run(dev, workdir):
             setattr(loop, k, fn)
         mas.maximum_path_cuda = kernel
     run_launches = launches_run + launches
-    mas_err = _run_mas_equal_plain(dev, k2_calls, run_launches)
+    mas_err = _run_mas_equal_plain(dev, k2_calls, run_launches, tag)
 
     # the bare step on the resumed state at the run's largest bucket shape
     pf = Prefetcher(dataset, sampler, compact=True)
@@ -821,7 +877,7 @@ def phase_run(dev, workdir):
     frames = (biggest["wav"].shape[1] - hps.data.filter_length) // hps.data.hop_length
     audio_s = float(biggest.pop("wav_lengths").sum()) / hps.data.sampling_rate
     batch = {k: v.to(dev) for k, v in biggest.items()}
-    step = loop.build_step(hps)
+    step = loop.build_step(hps, variant=variant)
     noise_gen = torch.Generator(device=dev).manual_seed(SEED)
     times = []
     for i in range(1 + BARE_STEPS):
@@ -836,7 +892,7 @@ def phase_run(dev, workdir):
         if not _finite(metrics):
             raise RuntimeError("the bare step at the largest bucket gave non-finite losses")
     bare_ms = float(np.median(times))
-    log(f"[run] the loop's median step {loop_ms:.1f} ms against the bare step at the run's "
+    log(f"{tag} the loop's median step {loop_ms:.1f} ms against the bare step at the run's "
         f"largest bucket shape (B {batch['x'].shape[0]}, T_x {batch['x'].shape[1]}, "
         f"{frames} frames, compact) {bare_ms:.1f} ms (median of {BARE_STEPS}, "
         f"{audio_s / (bare_ms / 1e3):.1f} audio-s/s)")
@@ -844,8 +900,9 @@ def phase_run(dev, workdir):
     torch.cuda.empty_cache()
 
     # the CLI in a subprocess: one epoch of a small corpus, from scratch
-    cli_dir = os.path.join(workdir, "cli")
+    cli_dir = os.path.join(workdir, "cli" + suffix)
     os.makedirs(cli_dir)
+    module = "vits_tpu_torch.train" + suffix
     cfg = get_hparams_from_file(default_config_path("base")).to_dict()
     cfg["data"]["training_files"] = os.path.join(cli_dir, "train.scp")
     cfg["data"]["validation_files"] = os.path.join(cli_dir, "valid.scp")
@@ -856,7 +913,7 @@ def phase_run(dev, workdir):
         json.dump(cfg, f)
     env = {**os.environ, "PYTHONPATH": ROOT}
     start = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "vits_tpu_torch.train", "-m", "cli", "-d", "-c",
+    r = subprocess.run([sys.executable, "-m", module, "-m", "cli", "-d", "-c",
                         os.path.join(cli_dir, "cli.json")], cwd=cli_dir, env=env,
                        capture_output=True, text=True, timeout=900)
     cli_s = time.perf_counter() - start
@@ -869,7 +926,7 @@ def phase_run(dev, workdir):
                            f"{'written' if os.path.exists(g) else 'missing'}:\n"
                            f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
     written = sorted(f for f in os.listdir(os.path.dirname(g)) if f.endswith(".npz"))
-    log(f"[run] CLI `python -m vits_tpu_torch.train -m cli -d -c cli.json` (cuda, epochs 1, "
+    log(f"{tag} CLI `python -m {module} -m cli -d -c cli.json` (cuda, epochs 1, "
         f"{CLI_UTTS} utterances of {CLI_SECONDS[0]}-{CLI_SECONDS[1]} s): exit 0 in "
         f"{cli_s:.1f} s, {cli_steps} step(s), wrote {written}")
     return run_launches, mas_err
@@ -1582,12 +1639,19 @@ def main() -> int:
         del model
         torch.cuda.empty_cache()
         server_launches = phase("servers", phase_servers, dev, ckpt)
-    mas_launches, _, _, _ = phase("training", phase_training, dev)
+    mas_launches, mel_med, _, _ = phase("training", phase_training, dev)
     if mas_launches <= 0:
         raise RuntimeError("the training path launched K2 no time")
     torch.cuda.empty_cache()
+    stft_launches, _, _, _ = phase("training_stft", phase_training, dev, "stft", mel_med)
+    if stft_launches <= 0:
+        raise RuntimeError("the stft training path launched K2 no time")
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         run_launches, run_mas_err = phase("run", phase_run, dev, workdir)
+        torch.cuda.empty_cache()
+        run_stft_launches, run_stft_mas_err = phase("run_stft", phase_run, dev, workdir,
+                                                    "stft")
     card = card_line()
     main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
@@ -1619,8 +1683,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
-        "launches": mas_launches + run_launches,
-        "max_abs_err": max(mas_err, run_mas_err),
+        "launches": mas_launches + stft_launches + run_launches + run_stft_launches,
+        "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1629,7 +1693,8 @@ def main() -> int:
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
         f"serving {launches}, fused {fused_launches}, servers {server_launches}, bf16 form "
-        f"{bf16_launches}; K2 launches: training {mas_launches}, run {run_launches}; phases: "
+        f"{bf16_launches}; K2 launches: training {mas_launches}, training_stft "
+        f"{stft_launches}, run {run_launches}, run_stft {run_stft_launches}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

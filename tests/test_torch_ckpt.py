@@ -1,7 +1,10 @@
 """Checkpoints across the two packages at TINY on the CPU: the JAX
 package's `.npz` format, parameters and AdamW state, read both ways
 (`__graft_entry__._tiny_cfg()` with both dropout rates 0, MPD periods 2 and
-3, the duration discriminator at the loop's widths, `-d` steps).
+3, the duration discriminator at the loop's widths, `-d` steps); and the
+same for the stft/MRD variant (`tiny_mrd_disc()`, RAdam for D and P as the
+loop builds them, spectral norm's u among the D leaves, with the zero
+moments the JAX tree keeps for each u).
 
 Each package takes one step from the same weights and saves; the other
 package's loader fills a FRESH state of its own from that file (every leaf
@@ -24,7 +27,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_dur_disc import HIDDEN, LOSS_KEYS, LR_P, _cfg_t, weights  # noqa: F401
+from test_torch_dur_disc import HIDDEN, LOSS_KEYS, LR_P, P_KEYS, _cfg_t, weights  # noqa: F401
+from test_torch_stft_train import port_cfg as _stft_cfg_t
+from test_torch_stft_train import tiny_mrd
 from test_torch_train import FAST_COMPILE, LR, _batch, _cfg, _noise, _np, _Probe, _torch_batch
 from vits_tpu.models.discriminators import MultiPeriodDiscriminator as JMPD
 from vits_tpu.models.synthesizer import DurationDiscriminator as JDur
@@ -32,10 +37,10 @@ from vits_tpu.models.synthesizer import Synthesizer as JSynth
 from vits_tpu.train.optim import Optimizer as JOptimizer
 from vits_tpu.train.step import make_train_step as j_make_train_step
 from vits_tpu.utils import checkpoint as jck
-from vits_tpu.utils.tiny import tiny_step_config
+from vits_tpu.utils.tiny import tiny_mrd_disc, tiny_step_config
 
 from vits_tpu_torch.config import HParams
-from vits_tpu_torch.convert import params_from_jax, state_from_jax
+from vits_tpu_torch.convert import params_from_jax, params_to_jax, state_from_jax
 from vits_tpu_torch.models.discriminators import MultiPeriodDiscriminator as TMPD
 from vits_tpu_torch.models.synthesizer import DurationDiscriminator as TDur
 from vits_tpu_torch.models.synthesizer import Synthesizer as TSynth
@@ -50,25 +55,33 @@ LRS = {"gen": LR, "disc": LR, "dur": LR_P}
 J_OPTS = {"gen": JOptimizer("adamw", (0.8, 0.99), 1e-9, 0.01),
           "disc": JOptimizer("adamw", (0.8, 0.99), 1e-9, 0.0),
           "dur": JOptimizer("adamw", (0.8, 0.99), 1e-9, 0.0)}
+# the stft variant's, as both loops build them: RAdam for D and P
+J_OPTS_STFT = {"gen": J_OPTS["gen"], "disc": JOptimizer("radam", (0.8, 0.99), 1e-9, 0.0),
+               "dur": JOptimizer("radam", (0.8, 0.99), 1e-9, 0.0)}
+STFT_LOSS_KEYS = ("loss_disc", "loss_gen", "loss_stft", "loss_dur", "loss_kl", "loss_kl_q",
+                  "loss_g_total", "losses_d_r", "losses_d_g", "losses_g", "grad_norm_d",
+                  "grad_norm_g") + P_KEYS
 
 
-def _fresh_port_state(seed=99):
+def _fresh_port_state(seed=99, variant="mel"):
     """A port training state with -d, its weights from another seed than the
     ones under test, so that what a load leaves in it came from the file."""
     gen = torch.Generator().manual_seed(seed)
+    disc = TMPD(periods=(2, 3)) if variant == "mel" else tiny_mrd()
     models = {"gen": init_weights(TSynth(**_cfg(), weight_norm=True), gen).train(),
-              "disc": init_weights(TMPD(periods=(2, 3)), gen).train(),
+              "disc": init_weights(disc, gen).train(),
               "dur": init_weights(TDur(HIDDEN, 64, 5), gen).train()}
     state = {"step": 0, "rng": None}
     for key, m in models.items():
         wd = 0.01 if key == "gen" else 0.0
+        kind = "radam" if variant == "stft" and key != "gen" else "adamw"
         state[key] = m
-        state[f"{key}_opt"] = TOptimizer((0.8, 0.99), 1e-9, wd).init(m.parameters())
+        state[f"{key}_opt"] = TOptimizer((0.8, 0.99), 1e-9, wd, kind).init(m.parameters())
     return state
 
 
-def _port_from_weights(weights):
-    state = _fresh_port_state()
+def _port_from_weights(weights, variant="mel"):
+    state = _fresh_port_state(variant=variant)
     for (_, key), tree in zip(PARTS, weights):
         params_from_jax(tree, state[key])
     return state
@@ -85,10 +98,12 @@ def _zeros_like_init(model, opt):
     return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype), shapes)
 
 
-def _jax_template():
-    return {"gen": _zeros_like_init(JSynth(**_cfg()), J_OPTS["gen"]),
-            "disc": _zeros_like_init(JMPD(periods=(2, 3)), J_OPTS["disc"]),
-            "dur": _zeros_like_init(JDur(HIDDEN, 64, 5), J_OPTS["dur"])}
+def _jax_template(variant="mel"):
+    opts = J_OPTS if variant == "mel" else J_OPTS_STFT
+    disc = JMPD(periods=(2, 3)) if variant == "mel" else tiny_mrd_disc()
+    return {"gen": _zeros_like_init(JSynth(**_cfg()), opts["gen"]),
+            "disc": _zeros_like_init(disc, opts["disc"]),
+            "dur": _zeros_like_init(JDur(HIDDEN, 64, 5), opts["dur"])}
 
 
 def _batch_noise(seed, key):
@@ -99,11 +114,12 @@ def _batch_noise(seed, key):
     return b, noise
 
 
-@pytest.fixture(scope="module")
-def j_step():
-    probes = {k: _Probe(o) for k, o in J_OPTS.items()}
-    cfg = tiny_step_config("mel", use_dur_dis=True)
-    fn = jax.jit(j_make_train_step(JSynth(**_cfg()), JMPD(periods=(2, 3)), cfg,
+def _make_j_step(variant):
+    opts = J_OPTS if variant == "mel" else J_OPTS_STFT
+    probes = {k: _Probe(o) for k, o in opts.items()}
+    cfg = tiny_step_config(variant, use_dur_dis=True)
+    disc = JMPD(periods=(2, 3)) if variant == "mel" else tiny_mrd_disc()
+    fn = jax.jit(j_make_train_step(JSynth(**_cfg()), disc, cfg,
                                    probes["gen"], probes["disc"], JDur(HIDDEN, 64, 5),
                                    probes["dur"]), compiler_options=FAST_COMPILE)
 
@@ -120,14 +136,33 @@ def j_step():
     return step
 
 
-def _t_step(state, seed, key):
+@pytest.fixture(scope="module")
+def j_step():
+    return _make_j_step("mel")
+
+
+@pytest.fixture(scope="module")
+def j_step_stft():
+    return _make_j_step("stft")
+
+
+@pytest.fixture(scope="module")
+def stft_weights():
+    gen = torch.Generator().manual_seed(5)
+    models = (TSynth(**_cfg(), weight_norm=True), tiny_mrd(), TDur(HIDDEN, 64, 5))
+    return tuple(params_to_jax(init_weights(m, gen).state_dict()) for m in models)
+
+
+def _t_step(state, seed, key, variant="mel"):
     b, noise = _batch_noise(seed, key)
-    return make_train_step(_cfg_t(True))(state, _torch_batch(b), noise, LR, LR, 0.01, LR_P)
+    cfg = _cfg_t(True) if variant == "mel" else _stft_cfg_t(use_dur_dis=True)
+    return make_train_step(cfg)(state, _torch_batch(b), noise, LR, LR, 0.01, LR_P)
 
 
 def _assert_carried(port_state, j_loaded, count):
     """The port state equals the JAX state leaf for leaf after the layout
-    transform: parameters, both moments, the count and the lr."""
+    transform: parameters, spectral norm's u (whose moments are zero in the
+    JAX tree), both moments, the count and the lr."""
     for _, key in PARTS:
         model, opt = port_state[key], port_state[f"{key}_opt"]
         keys = set(model.state_dict())
@@ -144,20 +179,25 @@ def _assert_carried(port_state, j_loaded, count):
             assert torch.equal(p.detach(), params[name]), f"{key}.{name}"
             assert torch.equal(st["exp_avg"], mu[name]), f"{key}.{name} mu"
             assert torch.equal(st["exp_avg_sq"], nu[name]), f"{key}.{name} nu"
+        for name, b in model.named_buffers():
+            assert torch.equal(b, params[name]), f"{key}.{name}"
+            assert not mu[name].any() and not nu[name].any(), f"{key}.{name} moments"
 
 
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_each_package_resumes_from_the_others_checkpoint(weights, j_step, tmp_path, writer):
-    template = _jax_template()
+def _resume_across(weights, j_step, tmp_path, writer, variant):
+    """`writer` takes one step from `weights` and saves G/D/P_1.npz; the JAX
+    package loads them into its own template and the port resumes a fresh
+    state from them, every leaf carried; then each takes one more step."""
+    template = _jax_template(variant)
     if writer == "jax":
-        opt0 = {k: t["optimizer"] for k, t in template.items()}  # zeros: a fresh AdamW
+        opt0 = {k: t["optimizer"] for k, t in template.items()}  # zeros: a fresh optimizer
         new, _ = j_step(dict(zip(("gen", "disc", "dur"), weights)), opt0, 0, 0, 21)
         for prefix, key in PARTS:
             jck.save_checkpoint(str(tmp_path / f"{prefix}_1.npz"),
                                 {"model": new[key], "optimizer": new[f"{key}_opt"][0]},
                                 step=1, epoch=1)
     else:
-        state, _ = _t_step(_port_from_weights(weights), 0, 21)
+        state, _ = _t_step(_port_from_weights(weights, variant), 0, 21, variant)
         assert state["step"] == 1
         save_all(HParams(model_dir=str(tmp_path)), state, 1)
 
@@ -175,16 +215,17 @@ def test_each_package_resumes_from_the_others_checkpoint(weights, j_step, tmp_pa
         assert (step, epoch) == (1, 1)
 
     # the port resumes a fresh state from the same files
-    port, epoch = resume(HParams(model_dir=str(tmp_path), use_dur_dis=True), _fresh_port_state())
+    port, epoch = resume(HParams(model_dir=str(tmp_path), use_dur_dis=True),
+                         _fresh_port_state(variant=variant))
     assert port["step"] == 1 and epoch == 1
     _assert_carried(port, j_loaded, 1)
 
     # one more step in each package from the file's state
     new_j, m_j = j_step({k: j_loaded[k]["model"] for k in j_loaded},
                         {k: j_loaded[k]["optimizer"] for k in j_loaded}, 1, 1, 22)
-    port, m_t = _t_step(port, 1, 22)
+    port, m_t = _t_step(port, 1, 22, variant)
     assert port["step"] == 2 and int(new_j["step"]) == 2
-    for k in LOSS_KEYS:
+    for k in (LOSS_KEYS if variant == "mel" else STFT_LOSS_KEYS):
         np.testing.assert_allclose(m_t[k].numpy(), m_j[k], rtol=1e-4, atol=1e-6, err_msg=k)
     for _, key in PARTS:
         model = port[key]
@@ -202,6 +243,22 @@ def test_each_package_resumes_from_the_others_checkpoint(weights, j_step, tmp_pa
             p_tol = 1e-6 + 1e-4 * np.abs(p_j) + np.where(np.abs(g_j) <= g_tol,
                                                          2 * LRS[key], 0.0)
             assert np.all(np.abs(prm.detach().numpy() - p_j) <= p_tol), f"{key}.{name}"
+        for name, b in model.named_buffers():  # u after the second step's power iteration
+            u_j = params[name].numpy()
+            assert np.all(np.abs(b.numpy() - u_j) <= 1e-6 + 1e-4 * np.abs(u_j)), f"{key}.{name}"
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_each_package_resumes_from_the_others_checkpoint(weights, j_step, tmp_path, writer):
+    _resume_across(weights, j_step, tmp_path, writer, "mel")
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_each_package_resumes_an_stft_run_from_the_others_checkpoint(stft_weights, j_step_stft,
+                                                                     tmp_path, writer):
+    """The stft variant's G/D/P_1.npz, with RAdam's state for D and P and
+    spectral norm's u, read both ways, then one more step in each package."""
+    _resume_across(stft_weights, j_step_stft, tmp_path, writer, "stft")
 
 
 def test_adapt_loads_the_models_and_resets_step_and_optimizer(weights, tmp_path):

@@ -4,11 +4,20 @@ its checkpoints as the JAX package reads them, the summaries' tags against
 `vits_tpu.train.loop.log_train_summaries`, eval, a resume through the CLI's
 `main(args)` with `--device cpu`, and what `run` refuses.
 
+The stft/MRD variant runs through the same `run` and its CLI twin
+`vits_tpu_torch.train_stft`. The loop builds the full-width
+MultiWaveSTFTDiscriminator, as the JAX loop does, whose 2048-point STFT and
+176-sample wave receptive span need a segment of thousands of samples; at
+TINY's 64-sample segment these tests give the loop `tiny_mrd_disc()`'s twin
+and the matching TINY resolutions instead (monkeypatched), and the card
+runs the full width (chip_smoke.py `[run_stft]`).
+
 Tolerances: the summaries' scalars EQUAL the JAX function's on the same
 metrics; checkpoint leaves EQUAL in key and shape to the JAX package's own
 training state; losses and the eval mel L1 finite.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -16,19 +25,50 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 
 from test_loop import make_corpus, make_hps
+from test_torch_stft_train import tiny_mrd
 from vits_tpu.train import loop as JL
 from vits_tpu.utils import checkpoint as jck
+from vits_tpu.utils.tiny import TINY_RESOLUTIONS, tiny_mrd_disc
 
 from vits_tpu_torch.config import HParams, get_hparams_from_dir
 from vits_tpu_torch.train import loop as TL
 from vits_tpu_torch.train.__main__ import main
+from vits_tpu_torch.train.step import TrainStepConfig
+from vits_tpu_torch.train_stft import main as main_stft
 from vits_tpu_torch.utils import checkpoint as tck
 
 NAME = "tiny"
+STFT_STEPS = 4  # a log step at 2, an eval and a save at 4
+
+
+class _TinyStepConfig:
+    """The loop's TrainStepConfig with TINY_RESOLUTIONS, the tiny MRD's."""
+
+    @staticmethod
+    def from_hps(*a, **k):
+        return dataclasses.replace(TrainStepConfig.from_hps(*a, **k),
+                                   resolutions=TINY_RESOLUTIONS)
+
+
+def _tiny_mrd(mp):
+    mp.setattr(TL, "MultiWaveSTFTDiscriminator", tiny_mrd)
+    mp.setattr(TL, "TrainStepConfig", _TinyStepConfig)
+
+
+class _FakeWriter:
+    def __init__(self):
+        self.scalars, self.images = {}, {}
+
+    def add_scalar(self, tag, v, step):
+        self.scalars[tag] = v
+
+    def add_image(self, tag, img, step):
+        self.images[tag] = img
 
 
 @pytest.fixture(scope="module")
@@ -82,21 +122,9 @@ def test_summary_tags_equal_jax(first_run):
     """The scalars and image tags the loop emitted equal what the JAX
     package's function emits on the same host metrics."""
     _, _, _, _, _, summaries, _ = first_run
-
-    class FakeWriter:
-        def __init__(self):
-            self.scalars, self.images = {}, {}
-
-        def add_scalar(self, tag, v, step):
-            self.scalars[tag] = v
-
-        def add_image(self, tag, img, step):
-            self.images[tag] = img
-
     assert [s for s, *_ in summaries] == [2, 4]
     for step, m, lr, (scalars, images) in summaries:
-        w = FakeWriter()
-        s_j, i_j = JL.log_train_summaries(w, step, m, lr)
+        s_j, i_j = JL.log_train_summaries(_FakeWriter(), step, m, lr)
         assert scalars == s_j and set(images) == set(i_j)
         assert {"loss/p/total", "loss/p/gen", "loss/p/0", "loss/p_r/0", "loss/p_g/0",
                 "loss/d_r/0", "learning_rate"} <= set(scalars)
@@ -156,12 +184,111 @@ def test_the_cli_resumes_the_run(first_run, monkeypatch):
     assert len(list(snap.values())) == len(snap) and snap.train in snap.values()
 
 
+@pytest.fixture(scope="module")
+def stft_run(first_run):
+    """STFT_STEPS steps of `run(variant="stft", device="cpu")` with -d into
+    <tmp>/logs/tiny_stft on the first run's corpus, every
+    `log_train_summaries` call recorded."""
+    tmp, hj, hps0, *_ = first_run
+    hps = HParams(**hps0.to_dict())
+    hps.model_dir = str(tmp / "logs" / "tiny_stft")
+    os.makedirs(hps.model_dir)
+    summaries, logged = [], []
+    real = TL.log_train_summaries
+
+    def record(writer, step, m, lr):
+        out = real(writer, step, m, lr)
+        summaries.append((step, m, lr, out))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        _tiny_mrd(mp)
+        mp.setattr(TL, "log_train_summaries", record)
+        state, steps = TL.run(hps, variant="stft", max_steps=STFT_STEPS, device="cpu",
+                              log_cb=lambda s, m: logged.append((s, m)))
+    return tmp, hj, hps, state, steps, summaries, logged
+
+
+def test_run_trains_the_stft_variant(stft_run):
+    """The stft run's losses, summaries (the JAX function's scalars on the
+    same metrics, no mel-loss tags, no full-mel image), checkpoints with
+    RAdam state and u (every leaf of the JAX package's own stft training
+    state at this config, read by its loader) and the logged discriminator
+    count (the JAX loop's)."""
+    _, hj, hps, state, steps, summaries, logged = stft_run
+    assert steps == state["step"] == STFT_STEPS
+    assert isinstance(state["disc_opt"], torch.optim.RAdam)
+    assert isinstance(state["dur_opt"], torch.optim.RAdam)
+    assert [s for s, _ in logged] == [2, 4]
+    for _, m in logged:
+        assert all(math.isfinite(v) for v in m.values())
+        assert {"loss_stft", "loss_disc_p", "loss_gen_p"} <= set(m)
+        assert not {"loss_mel", "loss_fm"} & set(m)
+    for step, m, lr, (scalars, images) in summaries:
+        s_j, i_j = JL.log_train_summaries(_FakeWriter(), step, m, lr)
+        assert scalars == s_j and set(images) == set(i_j)
+        assert "loss/g/stft" in scalars and "loss/g/mel" not in scalars
+        assert set(images) == {"slice/mel_org", "slice/mel_gen", "all/attn"}
+    log = _log(hps)
+    assert re.search(r"eval step 4 mel_l1 \S+", log)
+    disc_j = tiny_mrd_disc()
+    models = JL.build_models(hj, "stft", True)
+    opts = JL.build_optimizers(hj, "stft", True)
+    shapes = jax.eval_shape(lambda: JL.init_state(hj, models[0], disc_j, models[2], *opts))
+    n_disc = JL.count_params(shapes["disc"], exclude=())
+    assert f"Total parameters of Discriminator: {n_disc}" in log
+    for prefix, key in (("G", "gen"), ("D", "disc"), ("P", "dur")):
+        tmpl = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                      {"model": shapes[key], "optimizer": shapes[f"{key}_opt"]})
+        path = os.path.join(hps.model_dir, f"{prefix}_{STFT_STEPS}.npz")
+        with np.load(path) as z:
+            files = {k: z[k].shape for k in z.files}
+        for k, v in jck._flatten(tmpl).items():
+            assert k.endswith("__empty__") or files.get(k) == v.shape, (prefix, k)
+        loaded, step, epoch = jck.load_checkpoint(path, tmpl)
+        assert (step, epoch) == (STFT_STEPS, 1)
+        assert int(loaded["optimizer"].count) == STFT_STEPS
+    d_tree, _, _ = tck.read_checkpoint(os.path.join(hps.model_dir, f"D_{STFT_STEPS}.npz"))
+    u = d_tree["model"]["mwd"]["discriminators"]["0"]["convs"]["1"]["u"]
+    torch.testing.assert_close(torch.from_numpy(u),
+                               state["disc"].mwd.discriminators["0"].convs["1"].weight_u,
+                               atol=0, rtol=0)
+
+
+def test_the_stft_cli_trains_one_step(stft_run, monkeypatch):
+    """`python -m vits_tpu_torch.train_stft -m <name> -d -c <config> --device
+    cpu`, through `main(args)`, from scratch on a one-batch corpus for one
+    epoch: one step, its checkpoints written."""
+    tmp, _, hps, *_ = stft_run
+    ds = TL.TextAudioSpeakerDataset(hps.data.training_files, hps, load_spec=False)
+    sampler = TL.BucketSampler(ds.lengths, 2, hps.train.bucket_boundaries)
+    pair = next(b[:2] for b in sampler.buckets if len(b) >= 2)
+    (tmp / "one.scp").write_text("\n".join("|".join(map(str, ds.items[i][:4])) for i in pair))
+    cfg = hps.to_dict()
+    cfg.pop("model_dir")
+    cfg["data"]["training_files"] = str(tmp / "one.scp")
+    cfg["train"]["epochs"] = 1
+    (tmp / "cli_stft.json").write_text(json.dumps(cfg))
+    _tiny_mrd(monkeypatch)
+    monkeypatch.chdir(tmp)
+    state, steps = main_stft(["-m", "cli_stft", "-d", "-c", str(tmp / "cli_stft.json"),
+                              "--device", "cpu"])
+    assert steps == state["step"] == 1
+    assert isinstance(state["disc_opt"], torch.optim.RAdam)
+    files = set(os.listdir(tmp / "logs" / "cli_stft"))
+    assert {"G_1.npz", "D_1.npz", "P_1.npz", "config.json"} <= files
+
+
 def test_run_refuses_the_stft_variant_and_several_processes(first_run, monkeypatch):
+    """`run` refuses a variant it does not know (the stft one it now trains,
+    test_run_trains_the_stft_variant) and several processes."""
     _, _, hps, *_ = first_run
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        TL.run(hps, variant="stft", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        TL.build_models(hps, "stft")
+    with pytest.raises(ValueError, match="variant 'wave'"):
+        TL.run(hps, variant="wave", device="cpu")
+    with pytest.raises(ValueError, match="variant 'wave'"):
+        TL.build_models(hps, "wave")
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
         TL.run(hps, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+        TL.run(hps, variant="stft", device="cpu")

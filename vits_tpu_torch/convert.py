@@ -13,6 +13,8 @@ layouts differ (the torch layouts of vits_tpu/utils/torch_compat.py):
   weight norm "v"    as "w"             weight_v
   weight norm "g"    (out,); (1, in, 1) for ConvTranspose
                                         weight_g (n, 1, ...), dim 0 kept
+  spectral norm "w_orig" as "w"         weight_orig
+  spectral norm "u"  (out,)             weight_u (a buffer)
   "b"                                   bias
   Embedding "embedding" (n, d)          weight (n, d)
   "gamma", "beta", "alpha"              unchanged
@@ -21,12 +23,14 @@ A {"g", "v"} pair goes to `weight_g`/`weight_v` when the target model has
 them (a training model, `Synthesizer.from_hps(hps, train=True)`, the
 discriminators) and is folded into `weight` otherwise (serving). The
 posterior encoder "enc_q" is dropped for a model without one. The
-discriminator tree is {"discriminators": {"0": S, "1".."5": P}}; the
-duration discriminator's {"pre_x", "pre_d", "convs": {"0".."3"}, "out"}.
+discriminator tree is {"discriminators": {"0": S, "1".."5": P}} (the MPD)
+or {"mwd": {"discriminators": {i: {"convs": ...}}}, "mfd": ...} (the MRD);
+the duration discriminator's {"pre_x", "pre_d", "convs": {"0".."3"}, "out"}.
 
 Optimizer state (`optimizer_to_jax` / `optimizer_from_jax`): the JAX
-package's optax `inject_hyperparams` AdamW state, path-flattened as its
-checkpoints hold it, <-> `torch.optim.AdamW`'s:
+package's optax `inject_hyperparams` AdamW or RAdam state (both keep their
+count and moments at the same places), path-flattened as its checkpoints
+hold it, <-> `torch.optim.AdamW`'s or `torch.optim.RAdam`'s:
 
   "0"                    the inject count          the step count
   "1": {"learning_rate"} the last update's lr      param_groups' lr
@@ -38,7 +42,9 @@ checkpoints hold it, <-> `torch.optim.AdamW`'s:
 
 Each moment takes its parameter's layout transform. A parameter without
 torch state (torch makes it at the first step) is written as zeros with
-count 0.
+count 0. The JAX tree holds moments for every spectral-norm u as well,
+exactly zero there (u is outside the gradient); the port writes zeros in
+those places and ignores them on read.
 """
 
 from __future__ import annotations
@@ -107,8 +113,10 @@ def state_from_jax(tree: Dict[str, Any], keys: Optional[Set[str]] = None
                 rec(v, path + (k,))
                 continue
             arr = np.asarray(v, np.float32)
-            if k == "w":
-                put(path, "weight", _kernel_to_torch(path, arr))
+            if k in ("w", "w_orig"):
+                put(path, "weight" if k == "w" else "weight_orig", _kernel_to_torch(path, arr))
+            elif k == "u":
+                put(path, "weight_u", arr)
             elif k == "b":
                 put(path, "bias", arr)
             elif k == "embedding":
@@ -134,15 +142,18 @@ def params_from_jax(tree: Dict[str, Any], model: Optional[nn.Module] = None):
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
     """The port's state dict -> a JAX parameter tree of numpy arrays, the
     inverse of `params_from_jax`: `weight_g`/`weight_v` become {"g", "v"}
-    (a training state goes back to the JAX package's training tree), a
-    plain `weight` becomes "w" (or "embedding" under emb_g)."""
+    (a training state goes back to the JAX package's training tree),
+    `weight_orig`/`weight_u` {"w_orig", "u"}, a plain `weight` "w" (or
+    "embedding" under emb_g)."""
+    kernels = {"weight_v": "v", "weight_orig": "w_orig", "weight": "w"}
     tree: Dict[str, Any] = {}
     for key, t in state.items():
         parts = key.split(".")
         path, name = tuple(parts[:-1]), parts[-1]
         arr = t.detach().cpu().float().numpy()
-        if name == "weight_v" or (name == "weight" and arr.ndim >= 2 and path[-1:] != ("emb_g",)):
-            leaf = "v" if name == "weight_v" else "w"
+        if name in kernels and (name != "weight" or (arr.ndim >= 2
+                                                     and path[-1:] != ("emb_g",))):
+            leaf = kernels[name]
             arr = _kernel_to_jax(path, arr)
         elif name == "weight_g":
             leaf = "g"
@@ -151,6 +162,8 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
             leaf = "embedding"
         elif name == "bias":
             leaf = "b"
+        elif name == "weight_u":
+            leaf = "u"
         else:
             leaf = name
         node = tree
@@ -161,8 +174,9 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
 
 
 def optimizer_to_jax(opt: torch.optim.Optimizer, model: nn.Module) -> Dict:
-    """The AdamW state `opt` keeps for `model`'s parameters, as the JAX
-    package's optimizer tree (numpy, its layouts)."""
+    """The AdamW or RAdam state `opt` keeps for `model`'s parameters, as the
+    JAX package's optimizer tree (numpy, its layouts), with zero moments for
+    the spectral-norm u buffers."""
     mu, nu, counts = {}, {}, set()
     for name, p in model.named_parameters():
         st = opt.state.get(p, {})
@@ -172,6 +186,9 @@ def optimizer_to_jax(opt: torch.optim.Optimizer, model: nn.Module) -> Dict:
         else:
             counts.add(0)
             mu[name] = nu[name] = torch.zeros_like(p)
+    for name, b in model.named_buffers():
+        if name.endswith("weight_u"):
+            mu[name] = nu[name] = torch.zeros_like(b)
     if len(counts) != 1:
         raise ValueError(f"the parameters' step counts differ: {sorted(counts)}")
     count = np.asarray(counts.pop(), np.int32)

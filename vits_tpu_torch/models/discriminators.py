@@ -2,7 +2,9 @@
 vits_tpu/models/discriminators.py): DiscriminatorP (period-reshaped 2-D
 convs), DiscriminatorS (grouped strided 1-D convs) and
 MultiPeriodDiscriminator (S + periods 2, 3, 5, 7, 11), every conv
-weight-normed.
+weight-normed, or spectral-normed with `use_spectral_norm`
+(vits_tpu/models/discriminators.py:33-49, :79-83; both shipped configs
+set it false).
 
 Waveforms are (B, T, 1). Inside, the convs run channel-first (NCHW, NCL);
 the feature maps come back as channel-last views in the JAX package's
@@ -27,17 +29,22 @@ def _pad(k, d=1):
     return (k * d - d) // 2
 
 
+def _norm(use_spectral_norm: bool):
+    return dict(weight_norm=not use_spectral_norm, spectral_norm=use_spectral_norm)
+
+
 class DiscriminatorP(nn.Module):
-    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3):
+    def __init__(self, period: int, kernel_size: int = 5, stride: int = 3,
+                 use_spectral_norm: bool = False):
         super().__init__()
         self.period = period
         k, s = kernel_size, stride
+        norm = _norm(use_spectral_norm)
         chans = [(1, 32), (32, 128), (128, 512), (512, 1024)]
-        convs = [Conv2d(ci, co, (k, 1), (s, 1), (_pad(k), 0), weight_norm=True)
-                 for ci, co in chans]
-        convs.append(Conv2d(1024, 1024, (k, 1), (1, 1), (_pad(k), 0), weight_norm=True))
+        convs = [Conv2d(ci, co, (k, 1), (s, 1), (_pad(k), 0), **norm) for ci, co in chans]
+        convs.append(Conv2d(1024, 1024, (k, 1), (1, 1), (_pad(k), 0), **norm))
         self.convs = nn.ModuleDict({str(i): c for i, c in enumerate(convs)})
-        self.conv_post = Conv2d(1024, 1, (3, 1), (1, 1), (1, 0), weight_norm=True)
+        self.conv_post = Conv2d(1024, 1, (3, 1), (1, 1), (1, 0), **norm)
 
     def forward(self, x):
         """x (B, T, 1) -> (score (B, n), fmaps). T is reflect-padded to a
@@ -59,15 +66,16 @@ class DiscriminatorP(nn.Module):
 
 
 class DiscriminatorS(nn.Module):
-    def __init__(self):
+    def __init__(self, use_spectral_norm: bool = False):
         super().__init__()
+        norm = _norm(use_spectral_norm)
         spec = [(1, 16, 15, 1, 1, 7), (16, 64, 41, 4, 4, 20), (64, 256, 41, 4, 16, 20),
                 (256, 1024, 41, 4, 64, 20), (1024, 1024, 41, 4, 256, 20),
                 (1024, 1024, 5, 1, 1, 2)]
         self.convs = nn.ModuleDict({
-            str(i): Conv1d(ci, co, k, padding=pd, groups=g, stride=s, weight_norm=True)
+            str(i): Conv1d(ci, co, k, padding=pd, groups=g, stride=s, **norm)
             for i, (ci, co, k, s, g, pd) in enumerate(spec)})
-        self.conv_post = Conv1d(1024, 1, 3, padding=1, weight_norm=True)
+        self.conv_post = Conv1d(1024, 1, 3, padding=1, **norm)
 
     def forward(self, x):
         """x (B, T, 1) -> (score (B, T'), fmaps (B, T_i, C_i))."""
@@ -85,9 +93,8 @@ class MultiPeriodDiscriminator(nn.Module):
     def __init__(self, use_spectral_norm: bool = False,
                  periods: Sequence[int] = (2, 3, 5, 7, 11)):
         super().__init__()
-        if use_spectral_norm:
-            raise NotImplementedError("spectral-norm discriminators are not ported yet")
-        discs = [DiscriminatorS()] + [DiscriminatorP(p) for p in periods]
+        discs = [DiscriminatorS(use_spectral_norm)] + \
+            [DiscriminatorP(p, use_spectral_norm=use_spectral_norm) for p in periods]
         self.discriminators = nn.ModuleDict({str(i): d for i, d in enumerate(discs)})
 
     def forward(self, y, y_hat):

@@ -21,6 +21,18 @@ so; serving builds plain layers and loads folded kernels
 (`fold_weight_norm`, applied by `vits_tpu_torch.convert.params_from_jax`).
 `kernel()` returns the kernel either way.
 
+Spectral norm (vits_tpu/nn/core.py:103-182, the discriminators of the
+stft/MRD variant). Built with `spectral_norm=True`, a Conv1d/Conv2d holds
+`weight_orig` (a parameter, the kernel's shape) and `weight_u` (a buffer,
+(C_out,), unit length), and divides the kernel by sigma, its largest singular
+value estimated by one power iteration from u on every forward, with u and v
+constants there (`sn_kernel`). u is advanced only by an explicit
+`sn_update(module)`, once per discriminator step after its optimizer update,
+as the JAX step does (vits_tpu/train/step.py:201-214), never by a forward;
+`torch.nn.utils.spectral_norm`, which advances u on each training forward,
+is not this function. The kernel flattens to (C_out, -1) in torch's layout,
+a permutation of the JAX package's columns, which leaves sigma unchanged.
+
 Random initialisation (`init_weights`) follows the distributions of
 vits_tpu/nn/core.py:39-80 (not their bits), so a randomly initialised model
 has realistic activation scales.
@@ -51,8 +63,8 @@ def _kaiming_bound(fan_in: int) -> float:
     return math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in)
 
 
-def _xavier_bound(fan_in: int, fan_out: int) -> float:
-    return math.sqrt(6.0 / (fan_in + fan_out))
+def _xavier_bound(fan_in: int, fan_out: int, gain: float = 1.0) -> float:
+    return gain * math.sqrt(6.0 / (fan_in + fan_out))
 
 
 def _bias_bound(fan_in: int) -> float:
@@ -110,36 +122,95 @@ def _wn_norm(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(v * v, dim=tuple(range(1, v.ndim)), keepdim=True))
 
 
-class _Kernel(nn.Module):
-    """A layer's kernel: a plain `weight`, or the weight-norm pair
-    `weight_g`/`weight_v` (vits_tpu/nn/core.py:91 `wn_kernel`)."""
+SN_EPS = 1e-12
 
-    def _make_kernel(self, shape, weight_norm: bool):
-        self.weight_norm = weight_norm
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.linalg.vector_norm(x) + SN_EPS)
+
+
+def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor):
+    """One power-iteration step (vits_tpu/nn/core.py:167): kernel in torch's
+    layout (C_out, ...) flattened to (C_out, -1), u (C_out,). Returns
+    (kernel / sigma, the advanced u)."""
+    w = kernel.reshape(kernel.shape[0], -1)
+    v = _unit(w.t() @ u)
+    u_new = _unit(w @ v)
+    sigma = u_new @ (w @ v)
+    return kernel / sigma, u_new
+
+
+def sn_kernel(kernel: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The spectral-normalised kernel of a forward (vits_tpu/nn/core.py:103
+    `_sn_kernel`): one power iteration from u with u and v held constant, so
+    the gradient reaches the kernel through w @ v and the division only."""
+    w = kernel.reshape(kernel.shape[0], -1)
+    with torch.no_grad():
+        v = _unit(w.t() @ u)
+        u2 = _unit(w @ v)
+    return kernel / (u2 @ (w @ v))
+
+
+def make_spectral_norm(c_out: int, gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """A unit u of (C_out,) from N(0, 1) (vits_tpu/nn/core.py:132)."""
+    u = torch.randn(c_out, generator=gen)
+    return u / (torch.linalg.vector_norm(u) + SN_EPS)
+
+
+@torch.no_grad()
+def sn_update(module: nn.Module) -> nn.Module:
+    """Advance every spectral-norm u under `module` by one power iteration on
+    its current `weight_orig` (vits_tpu/nn/core.py:116): once per
+    discriminator step, after its optimizer update."""
+    for m in module.modules():
+        if isinstance(m, _Kernel) and m.spectral_norm:
+            m.weight_u.copy_(spectral_normalize(m.weight_orig, m.weight_u)[1])
+    return module
+
+
+class _Kernel(nn.Module):
+    """A layer's kernel: a plain `weight`, the weight-norm pair
+    `weight_g`/`weight_v` (vits_tpu/nn/core.py:91 `wn_kernel`), or the
+    spectral-norm `weight_orig` with its buffer `weight_u`."""
+
+    def _make_kernel(self, shape, weight_norm: bool, spectral_norm: bool = False):
+        if weight_norm and spectral_norm:
+            raise ValueError("a kernel takes weight norm or spectral norm, not both")
+        self.weight_norm, self.spectral_norm = weight_norm, spectral_norm
         if weight_norm:
             self.weight_g = nn.Parameter(torch.empty(shape[0], *([1] * (len(shape) - 1))))
             self.weight_v = nn.Parameter(torch.empty(*shape))
+        elif spectral_norm:
+            self.weight_orig = nn.Parameter(torch.empty(*shape))
+            self.register_buffer("weight_u", torch.empty(shape[0]))
         else:
             self.weight = nn.Parameter(torch.empty(*shape))
 
     def kernel(self) -> torch.Tensor:
         if self.weight_norm:
             return self.weight_g * self.weight_v / _wn_norm(self.weight_v)
+        if self.spectral_norm:
+            return sn_kernel(self.weight_orig, self.weight_u)
         return self.weight
 
-    @torch.no_grad()
-    def _set_kernel(self, w: torch.Tensor):
-        """Initialise from a kernel: weight norm starts at g = ||w||, so the
-        layer computes w (vits_tpu/nn/core.py:137 `make_weight_norm`)."""
+    def _raw(self) -> nn.Parameter:
         if self.weight_norm:
-            self.weight_v.copy_(w)
+            return self.weight_v
+        return self.weight_orig if self.spectral_norm else self.weight
+
+    @torch.no_grad()
+    def _set_kernel(self, w: torch.Tensor, gen=None):
+        """Initialise from a kernel: weight norm starts at g = ||w||, so the
+        layer computes w (vits_tpu/nn/core.py:137 `make_weight_norm`);
+        spectral norm at w with a random unit u (`make_spectral_norm`)."""
+        self._raw().copy_(w)
+        if self.weight_norm:
             self.weight_g.copy_(_wn_norm(w))
-        else:
-            self.weight.copy_(w)
+        elif self.spectral_norm:
+            self.weight_u.copy_(make_spectral_norm(w.shape[0], gen))
 
     def _uniform_kernel(self, bound: float, gen):
-        shape = self.weight_v.shape if self.weight_norm else self.weight.shape
-        self._set_kernel(torch.rand(shape, generator=gen) * (2 * bound) - bound)
+        self._set_kernel(torch.rand(self._raw().shape, generator=gen) * (2 * bound) - bound, gen)
 
 
 class Dense(_Kernel):
@@ -171,18 +242,22 @@ class Dense(_Kernel):
 
 class Conv1d(_Kernel):
     """1-D convolution on (B, T, C) (vits_tpu Conv1d: padding on both sides,
-    stride, dilation, groups). init: "torch" (kaiming uniform), "xavier", or
-    "zeros". `conv_ncl` is the same convolution on (B, C, T)."""
+    stride, dilation, groups). init: "torch" (kaiming uniform), "xavier"
+    (times `init_gain`), or "zeros". `conv_ncl` is the same convolution on
+    (B, C, T)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  padding: int = 0, dilation: int = 1, groups: int = 1,
                  bias: bool = True, init: str = "torch", stride: int = 1,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, spectral_norm: bool = False,
+                 init_gain: float = 1.0):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.padding, self.stride = kernel_size, padding, stride
         self.dilation, self.groups, self.init = dilation, groups, init
-        self._make_kernel((out_channels, in_channels // groups, kernel_size), weight_norm)
+        self.init_gain = init_gain
+        self._make_kernel((out_channels, in_channels // groups, kernel_size), weight_norm,
+                          spectral_norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, gen=None):
@@ -195,7 +270,7 @@ class Conv1d(_Kernel):
                     self.bias.zero_()
             return
         if self.init == "xavier":
-            bound = _xavier_bound(fan_in, self.out_channels * k)
+            bound = _xavier_bound(fan_in, self.out_channels * k, self.init_gain)
         else:
             bound = _kaiming_bound(fan_in)
         self._uniform_kernel(bound, gen)
@@ -236,21 +311,30 @@ class ConvTranspose1d(_Kernel):
 
 class Conv2d(_Kernel):
     """2-D convolution (vits_tpu Conv2d): (B, H, W, C) at the public face;
-    `conv_nchw` is the same convolution on (B, C, H, W)."""
+    `conv_nchw` is the same convolution on (B, C, H, W). init: "torch"
+    (kaiming uniform) or "xavier" (times `init_gain`)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: Tuple[int, int],
                  stride: Tuple[int, int] = (1, 1), padding: Tuple[int, int] = (0, 0),
-                 bias: bool = True, weight_norm: bool = False):
+                 bias: bool = True, weight_norm: bool = False, spectral_norm: bool = False,
+                 init: str = "torch", init_gain: float = 1.0):
         super().__init__()
         self.in_channels, self.out_channels = in_channels, out_channels
         self.kernel_size, self.stride, self.padding = (tuple(kernel_size), tuple(stride),
                                                        tuple(padding))
-        self._make_kernel((out_channels, in_channels, *self.kernel_size), weight_norm)
+        self.init, self.init_gain = init, init_gain
+        self._make_kernel((out_channels, in_channels, *self.kernel_size), weight_norm,
+                          spectral_norm)
         self.bias = nn.Parameter(torch.empty(out_channels)) if bias else None
 
     def reset_parameters(self, gen=None):
-        fan_in = self.in_channels * self.kernel_size[0] * self.kernel_size[1]
-        self._uniform_kernel(_kaiming_bound(fan_in), gen)
+        area = self.kernel_size[0] * self.kernel_size[1]
+        fan_in = self.in_channels * area
+        if self.init == "xavier":
+            bound = _xavier_bound(fan_in, self.out_channels * area, self.init_gain)
+        else:
+            bound = _kaiming_bound(fan_in)
+        self._uniform_kernel(bound, gen)
         if self.bias is not None:
             _uniform_(self.bias, _bias_bound(fan_in), gen)
 

@@ -1,10 +1,12 @@
-"""Training orchestration (counterpart of vits_tpu/train/loop.py) for the
-mel/MPD variant, with the duration discriminator of the `-d` flag: the
-alignment-noise schedule, the parameter count, the models and their
-optimizers, the seeded initial state, checkpoint resume (the JAX package's
-tolerant merge; `adapt` resets the step, the epoch and the optimizers) and
-saving, the training summaries under the reference's tags, eval synthesis
-with its mel L1, and `run`: the scp data pipeline (bucketed static shapes,
+"""Training orchestration (counterpart of vits_tpu/train/loop.py) for both
+variants, the mel/MPD one (train.py) and the stft/MRD one (train_stft.py),
+with the duration discriminator of the `-d` flag: the alignment-noise
+schedule, the parameter count, the models and their optimizers (AdamW; RAdam
+for the stft variant's discriminators), the seeded initial state,
+checkpoint resume (the JAX package's tolerant merge; `adapt` resets the
+step, the epoch and the optimizers) and saving, the training summaries under
+the reference's tags, eval synthesis with its mel L1, and `run`: the scp
+data pipeline (bucketed static shapes,
 spectrograms computed on the device, compact batches when the step runs in
 bf16), per-epoch learning rates, the stop conditions, and the step in the
 config's compute dtype.
@@ -14,8 +16,8 @@ and optimizer state in its layout (`vits_tpu_torch.convert`), so either
 package resumes from the other's.
 
 One process on one device: `WORLD_SIZE > 1` raises (data parallelism over
-DDP is ROADMAP.md A7), as does the stft/MRD variant (A4). Entry points run
-on `cuda` unless the caller passes `device="cpu"`.
+DDP is ROADMAP.md A7). Entry points run on `cuda` unless the caller passes
+`device="cpu"`.
 """
 
 from __future__ import annotations
@@ -33,21 +35,16 @@ from vits_tpu_torch.convert import (optimizer_from_jax, optimizer_to_jax, params
                                     params_to_jax)
 from vits_tpu_torch.device import resolve_device
 from vits_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+from vits_tpu_torch.models.mrd import MultiWaveSTFTDiscriminator
 from vits_tpu_torch.models.synthesizer import DurationDiscriminator, Synthesizer
 from vits_tpu_torch.nn.core import init_weights
 from vits_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel
 from vits_tpu_torch.train.data import (DEFAULT_BOUNDARIES, BucketSampler, Prefetcher,
                                        TextAudioSpeakerDataset, pin_batch, place_batch)
 from vits_tpu_torch.train.optim import Optimizer, exponential_lr
-from vits_tpu_torch.train.step import TrainStepConfig, make_train_step
+from vits_tpu_torch.train.step import TrainStepConfig, check_variant, make_train_step
 from vits_tpu_torch.utils import checkpoint as ckpt
 from vits_tpu_torch.utils import summary as S
-
-
-def _mel_only(variant: str):
-    if variant != "mel":
-        raise NotImplementedError(f"variant {variant!r}: the stft/MRD variant is not ported "
-                                  "yet (ROADMAP.md A4); the port trains variant='mel'")
 
 
 def align_noise_at(hps, step: int) -> float:
@@ -58,33 +55,41 @@ def align_noise_at(hps, step: int) -> float:
 
 
 def count_params(module: nn.Module, exclude=("enc_q", "weight_g")) -> int:
-    """Parameters of a module, leaving out any whose name has a component in
-    `exclude` (by default the posterior encoder and the weight-norm gains, as
-    the reference counts the generator, train.py:111-113)."""
-    return sum(p.numel() for name, p in module.named_parameters()
+    """Elements of a module's parameters and buffers (spectral norm's u),
+    leaving out any whose name has a component in `exclude`: by default the
+    posterior encoder and the weight-norm gains, as the reference counts the
+    generator (train.py:111-113) and the JAX loop counts both models
+    (vits_tpu/train/loop.py:47)."""
+    return sum(t.numel() for name, t in module.state_dict().items()
                if not set(name.split(".")) & set(exclude))
 
 
 def build_models(hps, variant: str = "mel", use_dur_dis: bool = False):
-    """(synth, disc, dur): the training synthesizer, the multi-period
-    discriminator and, with use_dur_dis, the duration discriminator (else
-    None), uninitialised, on the CPU."""
-    _mel_only(variant)
+    """(synth, disc, dur): the training synthesizer, the discriminator (the
+    multi-period one for "mel", MultiWaveSTFTDiscriminator for "stft") and,
+    with use_dur_dis, the duration discriminator (else None),
+    uninitialised, on the CPU."""
+    check_variant(variant)
     synth = Synthesizer.from_hps(hps, train=True)
-    disc = MultiPeriodDiscriminator(getattr(hps.model, "use_spectral_norm", False))
+    if variant == "mel":
+        disc = MultiPeriodDiscriminator(getattr(hps.model, "use_spectral_norm", False))
+    else:
+        disc = MultiWaveSTFTDiscriminator()
     dur = DurationDiscriminator(hps.model.hidden_channels, 64, 5) if use_dur_dis else None
     return synth, disc, dur
 
 
 def build_optimizers(hps, variant: str = "mel", use_dur_dis: bool = False):
     """(gen_opt, disc_opt, dur_opt): AdamW for G with the config's weight
-    decay, AdamW without decay for D and for P (else None)
-    (train.py:86-106)."""
-    _mel_only(variant)
+    decay; for D and for P (else None) AdamW without decay in the mel
+    variant (train.py:86-106), RAdam without decay in the stft one
+    (train_stft.py:97-98, vits_tpu/train/loop.py:74-80)."""
+    check_variant(variant)
     t = hps.train
     betas = tuple(t.betas)
-    return (Optimizer(betas, t.eps, t.weight_decay), Optimizer(betas, t.eps, 0.0),
-            Optimizer(betas, t.eps, 0.0) if use_dur_dis else None)
+    kind = "adamw" if variant == "mel" else "radam"
+    return (Optimizer(betas, t.eps, t.weight_decay), Optimizer(betas, t.eps, 0.0, kind),
+            Optimizer(betas, t.eps, 0.0, kind) if use_dur_dis else None)
 
 
 def init_state(hps, synth, disc, dur, gen_opt, disc_opt, dur_opt, seed: Optional[int] = None,
@@ -108,12 +113,12 @@ def init_state(hps, synth, disc, dur, gen_opt, disc_opt, dur_opt, seed: Optional
     return state
 
 
-def build_step(hps, compute_dtype: Optional[torch.dtype] = None):
-    """The mel/MPD train step in the config's compute dtype (bfloat16 where
-    `train.bf16_run` is set, as vits_tpu/train/loop.py:346 builds it), or in
-    `compute_dtype`, with the duration discriminator where `hps.use_dur_dis`
-    is set."""
-    return make_train_step(TrainStepConfig.from_hps(hps, compute_dtype))
+def build_step(hps, compute_dtype: Optional[torch.dtype] = None, variant: str = "mel"):
+    """The train step of `variant` in the config's compute dtype (bfloat16
+    where `train.bf16_run` is set, as vits_tpu/train/loop.py:346 builds it),
+    or in `compute_dtype`, with the duration discriminator where
+    `hps.use_dur_dis` is set."""
+    return make_train_step(TrainStepConfig.from_hps(hps, compute_dtype, variant=variant))
 
 
 _PARTS = (("G", "gen"), ("D", "disc"), ("P", "dur"))
@@ -188,9 +193,10 @@ _VEC_TAG_MAP = {
 def log_train_summaries(writer, global_step: int, m: dict, lr: float):
     """The training summaries under the reference's tags (train.py:253-276):
     scalars (the per-sub-discriminator `loss/d_r/{i}`, `loss/d_g/{i}`,
-    `loss/g/{i}` among them) and the mel-slice, full-mel and MAS-alignment
-    images. `m` holds the host copies of the step's metrics (scalars, the
-    `losses_*` vectors and the `viz_*` tensors). Returns (scalars, images)."""
+    `loss/g/{i}` among them) and the mel-slice, full-mel (the mel variant's)
+    and MAS-alignment images, of whichever the metrics hold. `m` holds the
+    host copies of the step's metrics (scalars, the `losses_*` vectors and
+    the `viz_*` tensors). Returns (scalars, images)."""
     scalars = {"learning_rate": float(lr)}
     for k, v in m.items():
         if k.startswith("viz_") or k in _VEC_TAG_MAP or np.ndim(v) != 0:
@@ -284,15 +290,16 @@ def _spec_frames(batch, hps) -> int:
 
 def run(hps, variant: str = "mel", max_steps: Optional[int] = None, device=None,
         log_cb=None):
-    """Train from `hps` (the CLI's config: `hps.model_dir`, `hps.adapt`,
-    `hps.use_dur_dis`, `hps.ckptG` / `hps.ckptD`) on `device` (`cuda`
+    """Train `variant` ("mel" or "stft") from `hps` (the CLI's config:
+    `hps.model_dir`, `hps.adapt`, `hps.use_dur_dis`, `hps.ckptG` /
+    `hps.ckptD`) on `device` (`cuda`
     unless "cpu"), resuming from the run dir's latest checkpoints, until
     `train.epochs`, the adapt step cap, the learning-rate floor or
     `max_steps`. Logs every `train.log_interval` steps (the only steps, with
     eval steps, that read device values back), evaluates and saves every
     `train.eval_interval`, saves at the end. `log_cb(step, metrics)` sees
     each log step's scalars. Returns (state, global_step)."""
-    _mel_only(variant)
+    check_variant(variant)
     if int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError("WORLD_SIZE > 1: the port trains in one process on one "
                                   "device; data parallelism over DDP is ROADMAP.md A7")
@@ -330,8 +337,9 @@ def run(hps, variant: str = "mel", max_steps: Optional[int] = None, device=None,
     state, epoch_start = resume(hps, state, logger)
     logger.info("Load train files = %d", len(dataset))
     logger.info("Total parameters of Generator: %d", count_params(synth))
-    logger.info("Total parameters of Discriminator: %d", count_params(disc, exclude=()))
-    step_fn = make_train_step(TrainStepConfig.from_hps(hps, use_dur_dis=use_dur_dis))
+    logger.info("Total parameters of Discriminator: %d", count_params(disc))
+    step_fn = make_train_step(TrainStepConfig.from_hps(hps, use_dur_dis=use_dur_dis,
+                                                       variant=variant))
 
     global_step = int(state["step"])
     noise_gen = torch.Generator(device=dev).manual_seed(t.seed + 17)

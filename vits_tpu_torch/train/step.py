@@ -1,13 +1,23 @@
-"""The mel/MPD GAN training step (counterpart of vits_tpu/train/step.py,
-`variant="mel"`, with the duration discriminator of the `-d` flag; the
-stft/MRD variant is not ported yet), in float32 or in the configured
-bfloat16.
+"""The GAN training step (counterpart of vits_tpu/train/step.py) of both
+variants, `variant="mel"` (the MPD, train.py) and `variant="stft"` (the
+MRD, train_stft.py), with the duration discriminator of the `-d` flag, in
+float32 or in the configured bfloat16.
 
 One step, as the JAX package's: the generator forward runs once under
 autograd; the discriminator step runs first on `y_hat.detach()` (D loss,
-backward, AdamW); then the generator loss is taken against the UPDATED
-discriminator (mel L1 x c_mel, feature matching, LSGAN, duration x c_dur,
-KL x c_kl, the z_q KL x c_kl_q), backward, AdamW. The discriminator's
+backward, the D optimizer); then the generator loss is taken against the
+UPDATED discriminator, backward, AdamW. The mel variant's generator loss is
+mel L1 x c_mel, feature matching, LSGAN, duration x c_dur, KL x c_kl and the
+z_q KL x c_kl_q. The stft variant's replaces the mel L1 and the feature
+matching by (sc + mag) x c_stft, the multi-resolution STFT loss: the five
+|STFT| of y_hat are computed once, in float32, and shared by the D step
+(detached), that loss and the G pass (vits_tpu/train/step.py:152-158,
+:182-199, :271-279); the real ones come from the real slice; the MRD sees
+real and fake as one batch of 2B in the D step and the fake alone in the G
+pass. After its RAdam update every spectral-norm u advances by one power
+iteration (`sn_update`), so the D pass uses the incoming u and the G pass
+the advanced one (vits_tpu/train/step.py:201-214). Its image summaries are
+element 0's mels only, without the full mel. The discriminator's
 parameters are frozen (`requires_grad_(False)`) while the generator loss
 runs, so its gradients from that loss are never formed and cannot leak into
 the next discriminator step. Gradients are not clipped; their global norms
@@ -27,8 +37,9 @@ Compute dtype (`TrainStepConfig.compute_dtype`, from `hps.train.bf16_run`
 as the JAX package's loop sets it): the JAX step's mixed precision. The
 parameters stay float32 masters; the generator forward, the D pass and G's
 adversarial pass run on a copy of every float32 parameter cast to the
-compute dtype (`cast_call`: weight norm's g and v are cast, and the kernel
-is then formed in that dtype), with the inputs x, spec and emo, the slices
+compute dtype (`cast_call`: weight norm's g and v, spectral norm's w_orig
+and u, are cast, and the kernel is then formed in that dtype), with the
+inputs x, spec and emo, the slices
 and y_hat cast; y_hat comes back to float32 for the mel loss; losses,
 gradients and optimizer state are float32, the gradients landing on the
 masters through the casts. In float32 the casts are identities.
@@ -41,14 +52,22 @@ updates them in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from vits_tpu_torch.nn.core import sn_update
 from vits_tpu_torch.ops.seq import clip_grad_value, slice_segments, slice_segments_1d
 from vits_tpu_torch.ops.stft import mel_spectrogram, spec_to_mel, spectrogram
 from vits_tpu_torch.train import losses as L
 from vits_tpu_torch.train.optim import Optimizer
+
+VARIANTS = ("mel", "stft")
+
+
+def check_variant(variant: str):
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
 
 
 def compute_dtype_of(hps) -> torch.dtype:
@@ -58,11 +77,13 @@ def compute_dtype_of(hps) -> torch.dtype:
 
 
 def cast_params(module: torch.nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-    """{name: parameter cast to `dtype`} for every float32 parameter of
-    `module` (the JAX step's `cast_p`). Each cast is differentiable, so
-    gradients land on the float32 masters, and a frozen parameter's cast
-    carries none. In float32 every cast is the parameter itself."""
-    return {n: p.to(dtype) for n, p in module.named_parameters() if p.dtype == torch.float32}
+    """{name: tensor cast to `dtype`} for every float32 parameter and buffer
+    (spectral norm's u) of `module`, as the JAX step's `cast_p` casts every
+    float32 leaf. Each cast is differentiable, so gradients land on the
+    float32 masters, and a frozen parameter's cast carries none. In float32
+    every cast is the tensor itself."""
+    tensors = list(module.named_parameters()) + list(module.named_buffers())
+    return {n: t.to(dtype) for n, t in tensors if t.dtype == torch.float32}
 
 
 def cast_call(module: torch.nn.Module, dtype: torch.dtype, *args, **kwargs):
@@ -87,11 +108,17 @@ class TrainStepConfig:
     c_kl_q: float = 0.01
     use_dur_dis: bool = False
     compute_dtype: torch.dtype = torch.float32
+    variant: str = "mel"
+    c_stft: float = 25.0
+    resolutions: Tuple[Tuple[int, int, int], ...] = L.DEFAULT_RESOLUTIONS
+
+    def __post_init__(self):
+        check_variant(self.variant)
 
     @classmethod
     def from_hps(cls, hps, compute_dtype: Optional[torch.dtype] = None,
-                 use_dur_dis: Optional[bool] = None):
-        """The config's step; compute_dtype None takes it from
+                 use_dur_dis: Optional[bool] = None, variant: str = "mel"):
+        """The config's step of `variant`; compute_dtype None takes it from
         `train.bf16_run` (`compute_dtype_of`), use_dur_dis None from the
         CLI's `hps.use_dur_dis` (default off)."""
         t, d = hps.train, hps.data
@@ -104,15 +131,17 @@ class TrainStepConfig:
                    win_length=d.win_length, n_mel_channels=d.n_mel_channels,
                    sampling_rate=d.sampling_rate, mel_fmin=d.mel_fmin, mel_fmax=d.mel_fmax,
                    c_mel=t.c_mel, c_dur=t.c_dur, c_kl=t.c_kl, c_kl_q=t.c_kl_q,
-                   use_dur_dis=use_dur_dis, compute_dtype=compute_dtype)
+                   use_dur_dis=use_dur_dis, compute_dtype=compute_dtype, variant=variant,
+                   c_stft=getattr(t, "c_stft", 25.0))
 
 
 def make_train_step(cfg: TrainStepConfig):
     """The step `(state, batch, noise, lr_g, lr_d, align_noise, lr_p=1e-4)
     -> (state, metrics)`.
 
-    state: {"gen": Synthesizer (train=True), "disc": MultiPeriodDiscriminator,
-    "gen_opt", "disc_opt": their optimizer states (`Optimizer.init`), "step":
+    state: {"gen": Synthesizer (train=True), "disc": MultiPeriodDiscriminator
+    (mel) or MultiWaveSTFTDiscriminator (stft), "gen_opt", "disc_opt": their
+    optimizer states (`Optimizer.init`: AdamW, and RAdam for the stft D), "step":
     int, "rng": the dropout generator; with use_dur_dis also "dur": the
     DurationDiscriminator and "dur_opt"}. batch: {"x", "x_lengths", "spec",
     "spec_lengths", "wav", "emo", "sid"} on the models' device, x (B, T_x,
@@ -122,11 +151,16 @@ def make_train_step(cfg: TrainStepConfig):
     `Synthesizer.draw_noise`. Dropout runs where the modules are in
     training mode. metrics are detached tensors on the device, the JAX
     step's keys."""
+    def mel_of(wav):
+        return mel_spectrogram(wav, cfg.filter_length, cfg.n_mel_channels, cfg.sampling_rate,
+                               cfg.hop_length, cfg.win_length, cfg.mel_fmin, cfg.mel_fmax)
+
     def train_step(state: Dict, batch: Dict[str, torch.Tensor],
                    noise: Dict[str, torch.Tensor], lr_g: float, lr_d: float,
                    align_noise: float, lr_p: float = 1e-4):
         synth, disc = state["gen"], state["disc"]
         cd = cfg.compute_dtype
+        stft = cfg.variant == "stft"
         wav = batch["wav"]
         if wav.dtype == torch.int16:
             wav = wav.float() * (1.0 / 32767.0)
@@ -151,12 +185,25 @@ def make_train_step(cfg: TrainStepConfig):
 
         # ---------------- D step (train.py:204-214) ----------------
         disc.requires_grad_(True)
-        y_d_r, y_d_g, _, _ = cast_call(disc, cd, y_slice_c, y_hat.detach().to(cd))
+        if stft:
+            # the fake magnitudes once, in f32, shared with the loss and the G
+            # pass; the real ones from the real slice (train_stft.py:195-199)
+            mags_fake = [L.stft_magnitude(y_hat[..., 0], *r) for r in cfg.resolutions]
+            with torch.no_grad():
+                mags_real = [L.stft_magnitude(y_slice[..., 0], *r) for r in cfg.resolutions]
+            B = y_slice.shape[0]
+            both = cast_call(disc, cd, torch.cat([y_slice_c, y_hat.detach().to(cd)]),
+                             [torch.cat([mr, mf.detach()]).to(cd)
+                              for mr, mf in zip(mags_real, mags_fake)])
+            y_d_r, y_d_g = [s[:B] for s in both], [s[B:] for s in both]
+        else:
+            y_d_r, y_d_g, _, _ = cast_call(disc, cd, y_slice_c, y_hat.detach().to(cd))
         loss_disc, losses_d_r, losses_d_g = L.discriminator_loss(y_d_r, y_d_g)
         state["disc_opt"].zero_grad(set_to_none=True)
         loss_disc.backward()
         grad_norm_d = clip_grad_value(disc.parameters())
         Optimizer.update(state["disc_opt"], lr_d)
+        sn_update(disc)  # spectral norm's one power iteration a step
 
         # ---------------- duration discriminator D step (train.py:205,215-220)
         if cfg.use_dur_dis:
@@ -177,18 +224,30 @@ def make_train_step(cfg: TrainStepConfig):
                             out["y_mask"]) * cfg.c_kl
         loss_kl_q = L.kl_loss(out["z_q"], out["logs_p"], out["m_q"], out["logs_q"],
                               out["y_mask"]) * cfg.c_kl_q
-        with torch.no_grad():
-            mel_full = spec_to_mel(spec, cfg.filter_length, cfg.n_mel_channels,
-                                   cfg.sampling_rate, cfg.mel_fmin, cfg.mel_fmax)
-            y_mel = slice_segments(mel_full, ids, cfg.segment_frames)
-        y_hat_mel = mel_spectrogram(y_hat[..., 0], cfg.filter_length, cfg.n_mel_channels,
-                                    cfg.sampling_rate, cfg.hop_length, cfg.win_length,
-                                    cfg.mel_fmin, cfg.mel_fmax)
-        loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.c_mel
-        _, y_d_g, fmap_r, fmap_g = cast_call(disc, cd, y_slice_c, y_hat.to(cd))
-        loss_fm = L.feature_loss(fmap_r, fmap_g)
-        loss_gen, gen_losses = L.generator_loss(y_d_g)
-        loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_kl_q
+        if stft:
+            sc, mag = L.multi_resolution_stft_losses(mags_real, mags_fake)
+            loss_stft = (sc + mag) * cfg.c_stft
+            y_d_g = cast_call(disc, cd, y_hat.to(cd), [m.to(cd) for m in mags_fake])
+            loss_gen, gen_losses = L.generator_loss(y_d_g)
+            loss_all = loss_gen + loss_stft + loss_dur + loss_kl + loss_kl_q
+            with torch.no_grad():  # element 0's mels, for the image summaries only
+                mel_1 = spec_to_mel(spec[:1], cfg.filter_length, cfg.n_mel_channels,
+                                    cfg.sampling_rate, cfg.mel_fmin, cfg.mel_fmax)
+                y_mel = slice_segments(mel_1, ids[:1], cfg.segment_frames)
+                y_hat_mel = mel_of(y_hat[:1, :, 0])
+            losses = {"loss_stft": loss_stft}
+        else:
+            with torch.no_grad():
+                mel_full = spec_to_mel(spec, cfg.filter_length, cfg.n_mel_channels,
+                                       cfg.sampling_rate, cfg.mel_fmin, cfg.mel_fmax)
+                y_mel = slice_segments(mel_full, ids, cfg.segment_frames)
+            y_hat_mel = mel_of(y_hat[..., 0])
+            loss_mel = torch.mean(torch.abs(y_mel - y_hat_mel)) * cfg.c_mel
+            _, y_d_g, fmap_r, fmap_g = cast_call(disc, cd, y_slice_c, y_hat.to(cd))
+            loss_fm = L.feature_loss(fmap_r, fmap_g)
+            loss_gen, gen_losses = L.generator_loss(y_d_g)
+            loss_all = loss_gen + loss_fm + loss_mel + loss_dur + loss_kl + loss_kl_q
+            losses = {"loss_mel": loss_mel, "loss_fm": loss_fm, "viz_mel_all": mel_full[0]}
         if cfg.use_dur_dis:
             dur.requires_grad_(False)
             _, p_g = cast_call(dur, cd, out["x_hidden"], out["x_mask"], out["logw_"],
@@ -206,13 +265,13 @@ def make_train_step(cfg: TrainStepConfig):
 
         zero = torch.zeros((), device=wav.device)
         metrics = {
-            "loss_mel": loss_mel, "loss_fm": loss_fm, "loss_gen": loss_gen,
+            **losses, "loss_gen": loss_gen,
             "loss_dur": loss_dur, "loss_kl": loss_kl, "loss_kl_q": loss_kl_q,
             "loss_g_total": loss_all, "losses_g": torch.stack(gen_losses),
             "loss_disc": loss_disc, "grad_norm_d": grad_norm_d, "grad_norm_g": grad_norm_g,
             "loss_disc_p": zero, "grad_norm_p": zero,
             "losses_d_r": torch.stack(losses_d_r), "losses_d_g": torch.stack(losses_d_g),
-            "viz_mel_org": y_mel[0], "viz_mel_gen": y_hat_mel[0], "viz_mel_all": mel_full[0],
+            "viz_mel_org": y_mel[0], "viz_mel_gen": y_hat_mel[0],
             "viz_attn": out["attn"][0],
         }
         if cfg.use_dur_dis:
