@@ -96,8 +96,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 a synthetic corpus written at the base widths (96
                 utterances of 2-12 s, 256-d .vec of 40-200 vectors, 1024-d
                 .emo, sids under 2048, 4 eval utterances), spectrograms on
-                the device, compact batches: 8 steps with one eval and one
-                save at the last (G/D/P_8.npz read back equal to the live
+                the device, compact batches: 4 steps with one eval and one
+                save at the last (G/D/P_4.npz read back equal to the live
                 state), then a resume for 2 steps; K2 launched once per step
                 of each, losses finite (the critic's too); the loop's median
                 step ms against the bare step at its largest bucket shape,
@@ -656,8 +656,7 @@ def phase_training(dev, variant="mel", mel_med=None):
 
 RUN_UTTS, RUN_VALID = 96, 4  # the [run] phase's corpus: 2-12 s utterances, and eval ones
 RUN_SECONDS = (2.0, 11.9)     # below the base config's max_wav_len of 12 s
-RUN_STEPS, RUN_RESUME = 8, 2  # the run's steps (one eval and one save, at its last), the resume's
-RUN_STEPS_STFT = 4            # ... the stft run's
+RUN_STEPS, RUN_RESUME = 4, 2  # the run's steps (one eval and one save, at its last), the resume's
 RUN_LOG_INTERVAL = 2
 CLI_UTTS, CLI_SECONDS = 16, (2.0, 3.5)  # the CLI's corpus: one bucket, one step an epoch
 BARE_STEPS = 3                # the bare step at the run's largest bucket, after 1 warm-up
@@ -749,10 +748,10 @@ def _run_mas_equal_plain(dev, calls, launches, tag="[run]") -> float:
 def phase_run(dev, workdir, variant="mel"):
     """`loop.run` of `variant` on the card at the base config's full width
     with the duration discriminator, in the configured bf16, batch 32, over
-    a synthetic corpus (written once into `workdir`): RUN_STEPS steps
-    (RUN_STEPS_STFT for the stft variant) with one eval and one save at the
-    last, its checkpoints read back equal to the live state, then a resume
-    for RUN_RESUME steps; K2 launched once per step of each; the bare step
+    a synthetic corpus (written once into `workdir`): RUN_STEPS steps with
+    one eval and one save at the last, its checkpoints read back equal to
+    the live state, then a resume for RUN_RESUME steps; K2 launched once per
+    step of each; the bare step
     at the run's largest bucket shape timed on the resumed state; then the
     CLI (`python -m vits_tpu_torch.train -d`, or `vits_tpu_torch.train_stft`)
     as a subprocess for one epoch of a small corpus. Every K2 launch of the
@@ -766,7 +765,6 @@ def phase_run(dev, workdir, variant="mel"):
                                            TextAudioSpeakerDataset)
 
     tag, suffix = ("[run]", "") if variant == "mel" else ("[run_stft]", "_stft")
-    run_steps = RUN_STEPS if variant == "mel" else RUN_STEPS_STFT
     hps = get_hparams_from_file(default_config_path("base"))
     t0 = time.perf_counter()
     scp = {name: os.path.join(workdir, f"{name}.scp") for name in ("train", "valid")}
@@ -776,7 +774,7 @@ def phase_run(dev, workdir, variant="mel"):
             with open(scp[name], "w") as f:
                 f.write("\n".join(part))
     hps.data.training_files, hps.data.validation_files = scp["train"], scp["valid"]
-    hps.train.log_interval, hps.train.eval_interval = RUN_LOG_INTERVAL, run_steps
+    hps.train.log_interval, hps.train.eval_interval = RUN_LOG_INTERVAL, RUN_STEPS
     hps.model_dir = os.path.join(workdir, "logs", "run" + suffix)
     os.makedirs(hps.model_dir)
     hps.use_dur_dis = True
@@ -832,10 +830,10 @@ def phase_run(dev, workdir, variant="mel"):
         setattr(loop, k, timing(k))
     mas.maximum_path_cuda = recording
     try:
-        state, steps, launches_run, seen, wall, peak = drive(run_steps)
-        if steps != run_steps or state["step"] != run_steps or launches_run != run_steps:
+        state, steps, launches_run, seen, wall, peak = drive(RUN_STEPS)
+        if steps != RUN_STEPS or state["step"] != RUN_STEPS or launches_run != RUN_STEPS:
             raise RuntimeError(f"the run took {steps} steps (state {state['step']}), K2 "
-                               f"launched {launches_run} times; expected {run_steps} each")
+                               f"launched {launches_run} times; expected {RUN_STEPS} each")
         window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
         loop_ms = float(np.median(window))
         for _, s, m in seen:
@@ -844,23 +842,23 @@ def phase_run(dev, workdir, variant="mel"):
                 f"{m['loss_gen_p']:.4f}, grad_norm_p {m['grad_norm_p']:.4f}; "
                 f"{m['audio_sec_per_s']:.1f} audio-s/s, input stall "
                 f"{m['input_stall_pct']:.2f}% over its {RUN_LOG_INTERVAL} steps")
-        leaves = _checkpoint_equals_state(hps.model_dir, state, run_steps)
+        leaves = _checkpoint_equals_state(hps.model_dir, state, RUN_STEPS)
         opts = "AdamW" if variant == "mel" else "AdamW for G, RAdam for D and P, and u"
         log(f"{tag} {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
             f"included), K2 launches {launches_run}; step ms by window after the first "
             f"{[round(w, 1) for w in window]}, median {loop_ms:.1f}; eval "
             f"{timed['evaluate'][0]:.2f} s, save (G, D, P with {opts} state) "
-            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{run_steps}.npz "
+            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{RUN_STEPS}.npz "
             f"read back equal to the live state ({leaves} leaves)")
         del state
         torch.cuda.empty_cache()
 
-        state, steps, launches, seen_r, wall, _ = drive(run_steps + RUN_RESUME)
-        if steps != run_steps + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
+        state, steps, launches, seen_r, wall, _ = drive(RUN_STEPS + RUN_RESUME)
+        if steps != RUN_STEPS + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
             raise RuntimeError(f"the resume ended at step {steps} (state {state['step']}) with "
                                f"{launches} K2 launches; expected step "
-                               f"{run_steps + RUN_RESUME}, {RUN_RESUME} launches")
-        log(f"{tag} resumed at step {run_steps}, ended at {steps} in {wall:.1f} s (build, "
+                               f"{RUN_STEPS + RUN_RESUME}, {RUN_RESUME} launches")
+        log(f"{tag} resumed at step {RUN_STEPS}, ended at {steps} in {wall:.1f} s (build, "
             f"load and save included), K2 launches {launches}; step {seen_r[-1][1]} "
             f"loss_g_total {seen_r[-1][2]['loss_g_total']:.4f}, loss_disc_p "
             f"{seen_r[-1][2]['loss_disc_p']:.4f}; save {timed['save_all'][-1]:.2f} s")

@@ -46,7 +46,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from test_torch_train import FAST_COMPILE, LR, _batch, _cfg, _np, _port, _Probe, _torch_batch
+from test_torch_train import (FAST_COMPILE, LR, _batch, _cfg, _np, _port, _Probe,  # noqa: F401
+                              _torch_batch, one_torch_thread)
 from vits_tpu.models.discriminators import MultiPeriodDiscriminator as JMPD
 from vits_tpu.models.synthesizer import Synthesizer as JSynth
 from vits_tpu.ops.mas import mask_to_lengths as j_mask_to_lengths

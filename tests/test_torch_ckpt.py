@@ -30,7 +30,8 @@ import jax.numpy as jnp
 from test_torch_dur_disc import HIDDEN, LOSS_KEYS, LR_P, P_KEYS, _cfg_t, weights  # noqa: F401
 from test_torch_stft_train import port_cfg as _stft_cfg_t
 from test_torch_stft_train import tiny_mrd
-from test_torch_train import FAST_COMPILE, LR, _batch, _cfg, _noise, _np, _Probe, _torch_batch
+from test_torch_train import (FAST_COMPILE, LR, _batch, _cfg, _noise, _np, _Probe,  # noqa: F401
+                              _torch_batch, one_torch_thread)
 from vits_tpu.models.discriminators import MultiPeriodDiscriminator as JMPD
 from vits_tpu.models.synthesizer import DurationDiscriminator as JDur
 from vits_tpu.models.synthesizer import Synthesizer as JSynth

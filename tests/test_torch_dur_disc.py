@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_train import FAST_COMPILE, LR, _batch, _cfg, _noise, _np, _port, _Probe, \
-    _torch_batch
+    _torch_batch, one_torch_thread  # noqa: F401 (a fixture)
 from vits_tpu.models.discriminators import MultiPeriodDiscriminator as JMPD
 from vits_tpu.models.synthesizer import DurationDiscriminator as JDur
 from vits_tpu.models.synthesizer import Synthesizer as JSynth

@@ -9,15 +9,15 @@ The stft/MRD variant runs through the same `run` and its CLI twin
 MultiWaveSTFTDiscriminator, as the JAX loop does, whose 2048-point STFT and
 176-sample wave receptive span need a segment of thousands of samples; at
 TINY's 64-sample segment these tests give the loop `tiny_mrd_disc()`'s twin
-and the matching TINY resolutions instead (monkeypatched), and the card
-runs the full width (chip_smoke.py `[run_stft]`).
+instead (monkeypatched; the step reads the STFT resolutions from the
+discriminator, so the TINY ones come with it), and the card runs the full
+width (chip_smoke.py `[run_stft]`).
 
 Tolerances: the summaries' scalars EQUAL the JAX function's on the same
 metrics; checkpoint leaves EQUAL in key and shape to the JAX package's own
 training state; losses and the eval mel L1 finite.
 """
 
-import dataclasses
 import json
 import math
 import os
@@ -31,6 +31,7 @@ import jax
 
 from test_loop import make_corpus, make_hps
 from test_torch_stft_train import tiny_mrd
+from test_torch_train import one_torch_thread  # noqa: F401 (a fixture)
 from vits_tpu.train import loop as JL
 from vits_tpu.utils import checkpoint as jck
 from vits_tpu.utils.tiny import TINY_RESOLUTIONS, tiny_mrd_disc
@@ -38,7 +39,6 @@ from vits_tpu.utils.tiny import TINY_RESOLUTIONS, tiny_mrd_disc
 from vits_tpu_torch.config import HParams, get_hparams_from_dir
 from vits_tpu_torch.train import loop as TL
 from vits_tpu_torch.train.__main__ import main
-from vits_tpu_torch.train.step import TrainStepConfig
 from vits_tpu_torch.train_stft import main as main_stft
 from vits_tpu_torch.utils import checkpoint as tck
 
@@ -46,18 +46,8 @@ NAME = "tiny"
 STFT_STEPS = 4  # a log step at 2, an eval and a save at 4
 
 
-class _TinyStepConfig:
-    """The loop's TrainStepConfig with TINY_RESOLUTIONS, the tiny MRD's."""
-
-    @staticmethod
-    def from_hps(*a, **k):
-        return dataclasses.replace(TrainStepConfig.from_hps(*a, **k),
-                                   resolutions=TINY_RESOLUTIONS)
-
-
 def _tiny_mrd(mp):
     mp.setattr(TL, "MultiWaveSTFTDiscriminator", tiny_mrd)
-    mp.setattr(TL, "TrainStepConfig", _TinyStepConfig)
 
 
 class _FakeWriter:
@@ -219,6 +209,7 @@ def test_run_trains_the_stft_variant(stft_run):
     assert steps == state["step"] == STFT_STEPS
     assert isinstance(state["disc_opt"], torch.optim.RAdam)
     assert isinstance(state["dur_opt"], torch.optim.RAdam)
+    assert state["disc"].resolutions == TINY_RESOLUTIONS  # the magnitudes the step formed
     assert [s for s, _ in logged] == [2, 4]
     for _, m in logged:
         assert all(math.isfinite(v) for v in m.values())

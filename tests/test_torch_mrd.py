@@ -242,6 +242,7 @@ def test_stft_magnitudes_and_losses_match_jax():
     x = rng.uniform(-0.5, 0.5, (2, 4096)).astype(np.float32)
     y = (x + 0.1 * rng.randn(2, 4096)).astype(np.float32)
     assert TL.DEFAULT_RESOLUTIONS == JL.DEFAULT_RESOLUTIONS
+    assert TM.MultiWaveSTFTDiscriminator().resolutions == TL.DEFAULT_RESOLUTIONS
     xs_j, ys_j, xs_t, ys_t = [], [], [], []
     for res in TL.DEFAULT_RESOLUTIONS:
         for wav, out_j, out_t in ((x, xs_j, xs_t), (y, ys_j, ys_t)):

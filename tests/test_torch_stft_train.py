@@ -5,7 +5,8 @@ D), from the same weights: the port's seeded initialisation (weight-norm
 pairs, spectral-norm kernels and their u) carried to a JAX tree by
 `params_to_jax`. The noise the JAX graph draws from its keys is rebuilt here
 from the same keys. Each JAX step compiles once, at XLA's lowest backend
-optimisation level, which only saves compile time.
+optimisation level, which only saves compile time, and the bf16 one on a
+second thread beside the rest of the fixture.
 
 fp32, tests/test_torch_train.py's tolerances: the MAS path EQUAL; losses
 rtol 1e-4, atol 1e-6; every G and D gradient before the optimizer atol
@@ -31,6 +32,7 @@ docstring).
 """
 
 import dataclasses
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -40,7 +42,8 @@ import jax
 import jax.numpy as jnp
 
 from test_torch_bf16_train import C, _noise as _noise_dtype
-from test_torch_train import FAST_COMPILE, LR, _batch, _cfg, _np, _Probe, _torch_batch
+from test_torch_train import (FAST_COMPILE, LR, _batch, _cfg, _np, _Probe, _torch_batch,  # noqa: F401
+                              one_torch_thread)
 from vits_tpu.models.synthesizer import Synthesizer as JSynth
 from vits_tpu.train.optim import Optimizer as JOptimizer
 from vits_tpu.train.step import make_train_step as j_make_train_step
@@ -71,8 +74,7 @@ def port_cfg(dtype=torch.float32, **kw):
     return TrainStepConfig(segment_frames=c.segment_frames, hop_length=c.hop_length,
                            filter_length=c.filter_length, win_length=c.win_length,
                            n_mel_channels=c.n_mel_channels, sampling_rate=c.sampling_rate,
-                           compute_dtype=dtype, variant="stft", resolutions=TINY_RESOLUTIONS,
-                           **kw)
+                           compute_dtype=dtype, variant="stft", **kw)
 
 
 def tiny_weights(seed=5):
@@ -134,16 +136,21 @@ def _port_step(gp, dp, b, key, dtype, hooks=None):
 
 @pytest.fixture(scope="module")
 def steps():
-    """Each package's fp32 and bf16 step from the same weights, batch and key."""
+    """Each package's fp32 and bf16 step from the same weights, batch and key.
+    The JAX bf16 step is traced and compiled on a second thread while the
+    rest runs (XLA's compiler and torch's ops release the GIL)."""
     gp, dp = tiny_weights()
     b, key = _batch(), jax.random.PRNGKey(21)
     hooks = []
-    fn = _j_step(jnp.float32)
-    return {"gp": gp, "dp": dp, "hooks": hooks, "fn_f32": fn,
-            "jax_f32": _j_run(fn, _j_state(gp, dp), b, key),
-            "jax_bf16": _j_run(_j_step(jnp.bfloat16), _j_state(gp, dp), b, key),
-            "port_f32": _port_step(gp, dp, b, key, torch.float32),
-            "port_bf16": _port_step(gp, dp, b, key, torch.bfloat16, hooks)}
+    with ThreadPoolExecutor(1) as pool:
+        jax_bf16 = pool.submit(lambda: _j_run(_j_step(jnp.bfloat16), _j_state(gp, dp), b, key))
+        fn = _j_step(jnp.float32)
+        out = {"gp": gp, "dp": dp, "hooks": hooks, "fn_f32": fn,
+               "jax_f32": _j_run(fn, _j_state(gp, dp), b, key),
+               "port_f32": _port_step(gp, dp, b, key, torch.float32),
+               "port_bf16": _port_step(gp, dp, b, key, torch.bfloat16, hooks)}
+        out["jax_bf16"] = jax_bf16.result()
+    return out
 
 
 def _u(model):
@@ -155,6 +162,8 @@ def test_stft_step_losses_match_jax(steps):
     _, _, m_t = steps["port_f32"]
     assert set(m_t) == set(m_j)
     assert not {"loss_mel", "loss_fm", "viz_mel_all"} & set(m_t)
+    # the port's step takes the resolutions from the MRD, the JAX step from its config
+    assert tiny_mrd().resolutions == tiny_step_config("stft").resolutions == TINY_RESOLUTIONS
     np.testing.assert_array_equal(m_t["viz_attn"].numpy(), m_j["viz_attn"])
     for k in LOSS_KEYS + VEC_KEYS:
         np.testing.assert_allclose(m_t[k].numpy(), m_j[k], rtol=1e-4, atol=1e-6, err_msg=k)

@@ -48,6 +48,18 @@ LR = 2e-4
 FAST_COMPILE = {"xla_backend_optimization_level": 0, "xla_llvm_disable_expensive_passes": True}
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's torch ops on one intra-op thread. TINY ops gain nothing
+    from more, and under a parallel test run (pytest -n) every busy core
+    stalls the threads' barriers: ten port steps took 12 s on one thread
+    and 168 s on eight beside five busy processes on an 8-core host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _cfg():
     cfg = __graft_entry__._tiny_cfg()
     cfg.update(p_dropout=0.0, p_dropout_d=0.0)

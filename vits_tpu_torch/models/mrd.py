@@ -4,9 +4,11 @@
 (level i sees the wave folded into 2^i channels), STFTDiscriminator (2-D convs
 that collapse the frequency axis of a magnitude image), MultiSTFTDiscriminator
 (five resolutions) and MultiWaveSTFTDiscriminator (both). Every conv is
-spectral-normed (weight-normed with `use_weight_norm`), xavier-initialised
-with the leaky-ReLU gain; the module paths are the JAX tree's
-(`mwd.discriminators.<i>.convs.<j>`, `mfd.discriminators.<i>.convs.<j>`).
+spectral-normed and xavier-initialised with the leaky-ReLU gain; the module
+paths are the JAX tree's (`mwd.discriminators.<i>.convs.<j>`,
+`mfd.discriminators.<i>.convs.<j>`). Each STFTDiscriminator holds the
+(fft, hop, win) resolution of the magnitudes it reads, which the stft
+training step computes from `MultiWaveSTFTDiscriminator.resolutions`.
 
 Waves are (B, T, 1) and magnitudes (B, T', F), the JAX package's layouts;
 inside, the convs run channel-first. The JAX package computes a dilated
@@ -34,11 +36,10 @@ def lrelu_gain(slope: float = LRELU_SLOPE) -> float:
 
 class WaveDiscriminator(nn.Module):
     def __init__(self, in_channels: int, kernel_size: int = 5, layers: int = 10,
-                 conv_channels: int = 64, use_weight_norm: bool = False):
+                 conv_channels: int = 64):
         super().__init__()
-        wn, cc = use_weight_norm, conv_channels
-        norm = dict(weight_norm=wn, spectral_norm=not wn, init="xavier",
-                    init_gain=lrelu_gain())
+        cc = conv_channels
+        norm = dict(spectral_norm=True, init="xavier", init_gain=lrelu_gain())
         convs = [Conv1d(in_channels, cc, 1, **norm)]
         convs += [Conv1d(cc, cc, kernel_size, dilation=i + 2, **norm)
                   for i in range(layers - 2)]
@@ -62,11 +63,10 @@ class WaveDiscriminator(nn.Module):
 
 class MultiWaveDiscriminator(nn.Module):
     def __init__(self, num_dwt: int = 5, kernel_size: int = 5, layers: int = 10,
-                 conv_channels: int = 64, use_weight_norm: bool = False):
+                 conv_channels: int = 64):
         super().__init__()
         self.discriminators = nn.ModuleDict({
-            str(i): WaveDiscriminator(2 ** i, kernel_size, layers, conv_channels + i * 32,
-                                      use_weight_norm)
+            str(i): WaveDiscriminator(2 ** i, kernel_size, layers, conv_channels + i * 32)
             for i in range(num_dwt)})
 
     def forward(self, x) -> List[torch.Tensor]:
@@ -111,12 +111,12 @@ def stft_plan(fft_size: int, num_layers: int, kernel_size: int, stride: int,
 class STFTDiscriminator(nn.Module):
     def __init__(self, fft_size: int = 1024, hop_size: int = 256, win_size: int = 1024,
                  num_layers: int = 4, kernel_size: int = 3, stride: int = 1,
-                 conv_channels: int = 256, use_weight_norm: bool = False):
+                 conv_channels: int = 256):
         super().__init__()
-        wn = use_weight_norm
+        self.resolution = (fft_size, hop_size, win_size)
         self.convs = nn.ModuleDict({
-            str(i): Conv2d(ci, co, k, s, p, weight_norm=wn, spectral_norm=not wn,
-                           init="xavier", init_gain=lrelu_gain())
+            str(i): Conv2d(ci, co, k, s, p, spectral_norm=True, init="xavier",
+                           init_gain=lrelu_gain())
             for i, (ci, co, k, s, p) in enumerate(
                 stft_plan(fft_size, num_layers, kernel_size, stride, conv_channels))})
 
@@ -138,14 +138,13 @@ class MultiSTFTDiscriminator(nn.Module):
                  win_sizes: Sequence[int] = (128, 256, 512, 1024, 2048),
                  num_layers: Sequence[int] = (5, 6, 7, 8, 9),
                  kernel_sizes: Sequence[int] = (5, 5, 5, 5, 5),
-                 conv_channels: Sequence[int] = (64, 64, 64, 64, 64),
-                 use_weight_norm: bool = False):
+                 conv_channels: Sequence[int] = (64, 64, 64, 64, 64)):
         super().__init__()
         self.discriminators = nn.ModuleDict({
             str(i): STFTDiscriminator(fft_sizes[i], hop_sizes[i], win_sizes[i], num_layers[i],
-                                      kernel_sizes[i], conv_channels=conv_channels[i],
-                                      use_weight_norm=use_weight_norm)
+                                      kernel_sizes[i], conv_channels=conv_channels[i])
             for i in range(len(fft_sizes))})
+        self.resolutions = tuple(d.resolution for d in self.discriminators.values())
 
     def forward(self, mags) -> List[torch.Tensor]:
         """mags: one (B, T', F_i) magnitude per resolution -> their scores."""
@@ -162,14 +161,14 @@ class MultiWaveSTFTDiscriminator(nn.Module):
                  win_sizes: Sequence[int] = (128, 256, 512, 1024, 2048),
                  stft_num_layers: Sequence[int] = (5, 6, 7, 8, 9),
                  stft_kernel_sizes: Sequence[int] = (5, 5, 5, 5, 5),
-                 stft_conv_channels: Sequence[int] = (64, 64, 64, 64, 64),
-                 use_weight_norm: bool = False):
+                 stft_conv_channels: Sequence[int] = (64, 64, 64, 64, 64)):
         super().__init__()
         self.mwd = MultiWaveDiscriminator(num_dwt, wave_kernel_size, wave_layers,
-                                          wave_conv_channels, use_weight_norm)
+                                          wave_conv_channels)
         self.mfd = MultiSTFTDiscriminator(fft_sizes, hop_sizes, win_sizes, stft_num_layers,
-                                          stft_kernel_sizes, stft_conv_channels,
-                                          use_weight_norm)
+                                          stft_kernel_sizes, stft_conv_channels)
+        # (fft_size, hop_size, win_size) of each magnitude `forward` reads
+        self.resolutions = self.mfd.resolutions
 
     def forward(self, x, mags) -> List[torch.Tensor]:
         """x (B, T, 1) wave, mags one (B, T', F_i) per resolution -> the

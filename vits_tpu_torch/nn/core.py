@@ -129,15 +129,20 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x) + SN_EPS)
 
 
+def _power_iteration(w: torch.Tensor, u: torch.Tensor):
+    """One power-iteration step on w (C_out, -1) from u (C_out,): (v, u')
+    with v = unit(w^T u), u' = unit(w v); sigma is u' . (w v)."""
+    v = _unit(w.t() @ u)
+    return v, _unit(w @ v)
+
+
 def spectral_normalize(kernel: torch.Tensor, u: torch.Tensor):
     """One power-iteration step (vits_tpu/nn/core.py:167): kernel in torch's
     layout (C_out, ...) flattened to (C_out, -1), u (C_out,). Returns
     (kernel / sigma, the advanced u)."""
     w = kernel.reshape(kernel.shape[0], -1)
-    v = _unit(w.t() @ u)
-    u_new = _unit(w @ v)
-    sigma = u_new @ (w @ v)
-    return kernel / sigma, u_new
+    v, u_new = _power_iteration(w, u)
+    return kernel / (u_new @ (w @ v)), u_new
 
 
 def sn_kernel(kernel: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -146,9 +151,8 @@ def sn_kernel(kernel: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     the gradient reaches the kernel through w @ v and the division only."""
     w = kernel.reshape(kernel.shape[0], -1)
     with torch.no_grad():
-        v = _unit(w.t() @ u)
-        u2 = _unit(w @ v)
-    return kernel / (u2 @ (w @ v))
+        v, u_new = _power_iteration(w, u)
+    return kernel / (u_new @ (w @ v))
 
 
 def make_spectral_norm(c_out: int, gen: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -164,7 +168,8 @@ def sn_update(module: nn.Module) -> nn.Module:
     discriminator step, after its optimizer update."""
     for m in module.modules():
         if isinstance(m, _Kernel) and m.spectral_norm:
-            m.weight_u.copy_(spectral_normalize(m.weight_orig, m.weight_u)[1])
+            w = m.weight_orig.reshape(m.weight_orig.shape[0], -1)
+            m.weight_u.copy_(_power_iteration(w, m.weight_u)[1])
     return module
 
 

@@ -10,7 +10,9 @@ UPDATED discriminator, backward, AdamW. The mel variant's generator loss is
 mel L1 x c_mel, feature matching, LSGAN, duration x c_dur, KL x c_kl and the
 z_q KL x c_kl_q. The stft variant's replaces the mel L1 and the feature
 matching by (sc + mag) x c_stft, the multi-resolution STFT loss: the five
-|STFT| of y_hat are computed once, in float32, and shared by the D step
+|STFT| of y_hat, at the MRD's resolutions
+(`MultiWaveSTFTDiscriminator.resolutions`), are computed once, in float32,
+and shared by the D step
 (detached), that loss and the G pass (vits_tpu/train/step.py:152-158,
 :182-199, :271-279); the real ones come from the real slice; the MRD sees
 real and fake as one batch of 2B in the D step and the fake alone in the G
@@ -52,7 +54,7 @@ updates them in place.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 
@@ -110,7 +112,6 @@ class TrainStepConfig:
     compute_dtype: torch.dtype = torch.float32
     variant: str = "mel"
     c_stft: float = 25.0
-    resolutions: Tuple[Tuple[int, int, int], ...] = L.DEFAULT_RESOLUTIONS
 
     def __post_init__(self):
         check_variant(self.variant)
@@ -188,9 +189,9 @@ def make_train_step(cfg: TrainStepConfig):
         if stft:
             # the fake magnitudes once, in f32, shared with the loss and the G
             # pass; the real ones from the real slice (train_stft.py:195-199)
-            mags_fake = [L.stft_magnitude(y_hat[..., 0], *r) for r in cfg.resolutions]
+            mags_fake = [L.stft_magnitude(y_hat[..., 0], *r) for r in disc.resolutions]
             with torch.no_grad():
-                mags_real = [L.stft_magnitude(y_slice[..., 0], *r) for r in cfg.resolutions]
+                mags_real = [L.stft_magnitude(y_slice[..., 0], *r) for r in disc.resolutions]
             B = y_slice.shape[0]
             both = cast_call(disc, cd, torch.cat([y_slice_c, y_hat.detach().to(cd)]),
                              [torch.cat([mr, mf.detach()]).to(cd)
