@@ -111,12 +111,35 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 plain search, the bare stft step at the largest bucket, and
                 `python -m vits_tpu_torch.train_stft -d` as a subprocess for
                 one step;
-  9. card     - print the card's name and power limit.
+  9. sat      - SAT voice cloning at configs/adapt.json's full width (8 kHz,
+                hop 96, upsampling 6-4-2-2, gin 256, text 192, 1024
+                speakers) and its deployment: seeded random pretrained
+                G_0/D_0 and two new speakers (10001, 10002) of 6 synthetic
+                utterances of 2-8 s with transcripts; `sat.run_adapt` on the
+                card in the config's bf16 for 4 steps (K2 launched once per
+                step, every launch bit-exact against the plain search; the
+                mapping 10001 -> 1023, 10002 -> 1022, spkid.map, the banks
+                and their links); `python -m vits_tpu_torch.export
+                --convert 1` as a subprocess (text buckets 64, 128; frame
+                buckets 256, 512, 1024); the clone served by its external
+                ids with EmoVITS(quantize=True): 8 calibration requests,
+                then 4 int8 requests, K1's launches = the plans at the
+                adapt shapes, each correlating >= 0.98 with its float
+                decode; EmoVITS(aot=True) in fp32: in-bucket requests
+                against the eager two-phase float decode at the same shapes
+                and noise (atol 1e-4), one request past the text buckets
+                served eagerly, the latency of AOT against eager two-phase
+                float in turns, the capture seconds of each bucket; the
+                deployment reloaded from save_torch_checkpoint's .pth, the
+                same waveform; K1 at the 12 adapt chains of a 256-frame
+                request, its time against its bound;
+ 10. card     - print the card's name and power limit.
 Each phase prints the seconds it took. K1's launches in the kernels line are
-those of the serving, fused and server phases, each read with the counter set
-to 0 just before the path runs and read just after; its bf16 form's those of
-the bf16 phase, and K2's those of both precisions' training steps of both
-variants and of both runs and their resumes.
+those of the serving, fused, server and sat phases, each read with the
+counter set to 0 just before the path runs and read just after; its bf16
+form's those of the bf16 phase, and K2's those of both precisions' training
+steps of both variants, of both runs and their resumes, and of the adapt
+run.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -247,12 +270,12 @@ def k1_case(dev, gen, C, k, dil, gin, lens, M, dtype=torch.float32):
     return qp, x, gs, valid
 
 
-def k1_shapes():
-    """The 12 base-config chain shapes of a CHAIN_FRAMES-frame request, with
+def k1_shapes(config="base"):
+    """The 12 chain shapes of a config's CHAIN_FRAMES-frame request, with
     a ragged valid length (not a multiple of the stage's upsampling):
-    (C, k, dilations, M, valid)."""
+    (C, k, dilations, M, valid), and the config's gin."""
     from vits_tpu_torch.config import default_config_path, get_hparams_from_file
-    m = get_hparams_from_file(default_config_path("base")).model
+    m = get_hparams_from_file(default_config_path(config)).model
     out, up = [], 1
     for s, u in enumerate(m.upsample_rates):
         up *= u
@@ -1591,6 +1614,399 @@ def phase_servers(dev, ckpt):
     return launches
 
 
+SAT_SPEAKERS = (10001, 10002)  # external ids; run_adapt reserves 1023 and 1022 for them
+SAT_UTTS, SAT_SECONDS = 6, (2.0, 8.0)  # each speaker's synthetic 8 kHz utterances
+SAT_STEPS = 4                  # adapt steps, one K2 launch each
+SAT_TEXT_BUCKETS, SAT_FRAME_BUCKETS = (64, 128), (256, 512, 1024)  # the AOT export's
+N_SAT_INT8 = 4                 # the clone's int8 requests after the calibration
+N_AOT = 6                      # in-bucket requests, AOT against eager two-phase float
+AOT_ROUNDS = 3                 # timed rounds of the N_AOT requests in both modes, in turns
+# an AOT bucket against the eager two-phase float decode of the same request at
+# the same padded shapes and noise: the same ops on the same weights, replayed
+AOT_ATOL = 1e-4
+SAT_WORDS = ("ni", "hao", "shi", "jie", "yu", "yin", "he", "cheng", "ke", "long", "a")
+
+
+def write_sat_dir(sat_dir, seed):
+    """The layout run_adapt reads, at configs/adapt.json's full width:
+    seeded random pretrain/G_0.npz (the training synthesizer, weight norm)
+    and D_0.npz (the multi-period discriminator), configs/adapt.json (the
+    repo's, logging every step so that the step times can be read), and
+    data/<spkid>/ with SAT_UTTS synthetic utterances at 8 kHz of SAT_SECONDS
+    (a gliding tone in noise, written as write_corpus writes its wavs) and a
+    transcript each, about one character per 6 frames. Returns the config."""
+    from vits_tpu_torch.config import HParams, default_config_path
+    from vits_tpu_torch.convert import params_to_jax
+    from vits_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from vits_tpu_torch.models.synthesizer import Synthesizer
+    from vits_tpu_torch.nn.core import init_weights
+    from vits_tpu_torch.utils.audio import write_wav
+    from vits_tpu_torch.utils.checkpoint import save_checkpoint
+
+    with open(default_config_path("adapt")) as f:
+        cfg = json.load(f)
+    cfg["train"]["log_interval"] = 1
+    for sub in ("configs", "pretrain"):
+        os.makedirs(os.path.join(sat_dir, sub))
+    with open(os.path.join(sat_dir, "configs", "adapt.json"), "w") as f:
+        json.dump(cfg, f)
+    hps = HParams(**cfg)
+    gen = torch.Generator().manual_seed(seed)
+    for name, model in (("G_0.npz", Synthesizer.from_hps(hps, train=True)),
+                        ("D_0.npz", MultiPeriodDiscriminator(hps.model.use_spectral_norm))):
+        init_weights(model, gen)
+        save_checkpoint(os.path.join(sat_dir, "pretrain", name),
+                        {"model": params_to_jax(model.state_dict())})
+    rng = np.random.RandomState(seed)
+    sr, hop = hps.data.sampling_rate, hps.data.hop_length
+    for spk in SAT_SPEAKERS:
+        d = os.path.join(sat_dir, "data", str(spk))
+        os.makedirs(d)
+        f0 = rng.uniform(90, 250)
+        for u in range(SAT_UTTS):
+            T = int(rng.uniform(*SAT_SECONDS) * sr)
+            t = np.arange(T) / sr
+            wav = 0.3 * np.sin(2 * np.pi * f0 * t * (1 + 0.05 * np.sin(np.pi * t))) \
+                + 0.05 * rng.randn(T)
+            write_wav(os.path.join(d, f"u{u}.wav"), wav.astype(np.float32), sr)
+            n_chars = T // hop // 6
+            text = " ".join(rng.choice(SAT_WORDS, n_chars))[:n_chars]
+            with open(os.path.join(d, f"u{u}.txt"), "w") as f:
+                f.write(text + "\n")
+    return cfg
+
+
+def _sat_requests(model, n, rng, dev, tokens, frames):
+    """n (external spkid, text, (spkid, bank row), rate): the clone's two
+    voices in turn with a row of their emotion banks, `tokens` text vectors
+    (a range), the rate chosen so the request decodes about `frames` frames
+    (a range)."""
+    out = []
+    targets = np.linspace(*frames, n).astype(int)
+    rng.shuffle(targets)
+    for i, target in enumerate(targets):
+        ext = SAT_SPEAKERS[i % len(SAT_SPEAKERS)]
+        sid = model.spkid_mapping[ext]
+        bank = model._load_spk_emo_embed(sid)
+        row = int(rng.randint(len(bank)))
+        text = rng.randn(int(rng.randint(*tokens)), model.text_channels).astype(np.float32)
+        with torch.inference_mode():
+            _, _, logw, _ = model.synth.infer_p1(
+                torch.from_numpy(text[None]).to(dev),
+                torch.from_numpy(bank[row][None]).to(dev), torch.tensor([sid], device=dev))
+        out.append((ext, text, (ext, row), target / float(torch.exp(logw.float()).sum())))
+    return out
+
+
+class _EagerPhases:
+    """Stands in for an AOTBundle with the same buckets whose phases run
+    eagerly: the eager two-phase decode at the bucket's padded shapes."""
+
+    def __init__(self, bundle, synth):
+        self.bundle, self.synth = bundle, synth
+        self.pick_text_bucket = bundle.pick_text_bucket
+        self.pick_frame_bucket = bundle.pick_frame_bucket
+
+    def call_p1(self, t_bucket, params, x, x_mask, emo, sid):
+        return self.synth.infer_p1(x, emo, sid, x_mask=x_mask)
+
+    def call_p2(self, t_bucket, f_bucket, params, *args):
+        return self.synth.infer_p2(*args)
+
+
+def _k1_at(dev, shapes, gin, tag):
+    """K1 at each chain shape against its plain version (chip_smoke's
+    tolerance), with its device time from a CUDA graph, the plain version's
+    and the bound. Returns the totals and the largest difference."""
+    from vits_tpu_torch.nn import rb_chain
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator().manual_seed(SEED + 12)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "launches": 0}
+    worst = 0.0
+    for C, k, dil, M, v in shapes:
+        qp, x, gs, valid = k1_case(dev, gen, C, k, dil, gin, [v], M)
+        out = rb_chain.chain_q8_cuda(qp, x, gs, valid)
+        ref = rb_chain.chain_q8_plain(qp, x, gs, valid)
+        torch.cuda.synchronize()
+        diff = (out - ref).abs()
+        err, peak = float(diff.max()), float(ref.abs().max())
+        off = float((diff > 1e-3 * peak).float().mean())
+        if not (torch.isfinite(out).all() and err <= 0.05 * max(1.0, peak) and off < 0.01):
+            raise RuntimeError(f"{tag} K1 at C={C} k={k} M={M}: max_abs_err {err:.3e}, "
+                               f"{100 * off:.3f}% off")
+        worst = max(worst, err)
+        p = rb_chain.plan(1, M, C, k, dil, n_sm)
+        ms = graph_ms(lambda: rb_chain.chain_q8_cuda(qp, x, gs, valid))
+        plain_ms = cuda_ms(lambda: rb_chain.chain_q8_plain(qp, x, gs, valid), iters=3, warmup=1)
+        ops, nbytes = rb_chain.chain_ops_bytes(1, M, C, k, len(dil))
+        bound = max(ops / INT8_PEAK, nbytes / HBM_BW) * 1e3
+        log(f"{tag} K1 C={C:3d} k={k:2d} M={M:5d} valid={v}: {p.form} T={p.T} launches "
+            f"{p.launches}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({'ops' if ops / INT8_PEAK > nbytes / HBM_BW else 'bytes'}; "
+            f"{100 * bound / ms:.1f}% of it), max_abs_err {err:.3e}"
+            f"{', bit-equal' if torch.equal(out, ref) else ''}")
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += bound
+        tot["launches"] += p.launches
+        del qp, x, out, ref
+    return tot, worst
+
+
+def phase_sat(dev, workdir):
+    """SAT voice cloning at configs/adapt.json's full width, then its
+    deployment: `run_adapt` on the card in the config's bf16 (data prep,
+    SAT_STEPS adapt steps from the seeded pretrained G_0/D_0, pruning, the
+    greedy-soup export, spkid.map and the banks), every K2 launch held
+    bit-exact against the plain search; `python -m vits_tpu_torch.export
+    --convert 1` as a subprocess at a few buckets; the clone served by its
+    external ids through EmoVITS(quantize=True) (N_CALIB calibration
+    requests, then N_SAT_INT8 int8 ones, K1's launches = the plans, each
+    correlating with its float decode), through EmoVITS(aot=True) (in-bucket
+    requests against the eager two-phase float decode at the same shapes
+    and noise, one request past the buckets, the latency of both in turns,
+    the capture seconds of each bucket), and reloaded from a `.pth` written
+    by save_torch_checkpoint; K1 timed at the 12 adapt-config chains of a
+    CHAIN_FRAMES-frame request. Returns (K1 launches, K2 launches, K2's and
+    K1's largest differences from their plain versions)."""
+    import shutil
+
+    import vits_tpu_torch.export as export_mod
+    from vits_tpu_torch import sat as sat_mod
+    from vits_tpu_torch.infer import EmoVITS
+    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.ops import mas
+    from vits_tpu_torch.train import loop
+    from vits_tpu_torch.utils.checkpoint import read_checkpoint
+    from vits_tpu_torch.utils.torch_compat import save_torch_checkpoint
+
+    sat_dir, out = os.path.join(workdir, "sat"), os.path.join(workdir, "deploy")
+    t0 = time.perf_counter()
+    cfg = write_sat_dir(sat_dir, SEED + 5)
+    m, d = cfg["model"], cfg["data"]
+    log(f"[sat] configs/adapt.json at full width ({d['sampling_rate']} Hz, hop "
+        f"{d['hop_length']}, upsampling {m['upsample_rates']}, gin {m['gin_channels']}, text "
+        f"{d['text_channels']}, {d['n_speakers']} speakers, n_layers_q {m['n_layers_q']}, "
+        f"batch {cfg['train']['batch_size']}, bf16_run {cfg['train']['bf16_run']}); pretrained "
+        f"G_0/D_0 and {len(SAT_SPEAKERS)} x {SAT_UTTS} utterances of {SAT_SECONDS[0]}-"
+        f"{SAT_SECONDS[1]} s written in {time.perf_counter() - t0:.1f} s")
+
+    # run_adapt, its parts timed, every K2 launch recorded
+    timed, seen, k2_calls = {}, [], []
+    real = {"prep": sat_mod.prepare_speaker_data, "train": loop.run, "export": export_mod.main}
+    kernel = mas.maximum_path_cuda
+
+    def recording(neg, t_ys, t_xs):
+        path = kernel(neg, t_ys, t_xs)
+        k2_calls.append(tuple(t.to("cpu", non_blocking=True) for t in (neg, t_ys, t_xs, path)))
+        return path
+
+    def timing(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                timed[name] = timed.get(name, 0.0) + time.perf_counter() - start
+        return call
+
+    def train_logged(hps, **kw):
+        return real["train"](hps, log_cb=lambda s, mt: seen.append((time.perf_counter(), s, mt)),
+                             **kw)
+
+    sat_mod.prepare_speaker_data = timing("prep", real["prep"])
+    loop.run = timing("train", train_logged)
+    export_mod.main = timing("export", real["export"])
+    mas.maximum_path_cuda = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mas.counter.launches = 0                          # main path starts here
+        start = time.perf_counter()
+        mapping = sat_mod.run_adapt(sat_dir, out, max_steps=SAT_STEPS, device=dev)
+        torch.cuda.synchronize()
+        k2_launches = mas.counter.launches                # main path ends here
+        wall = time.perf_counter() - start
+    finally:
+        sat_mod.prepare_speaker_data = real["prep"]
+        loop.run = real["train"]
+        export_mod.main = real["export"]
+        mas.maximum_path_cuda = kernel
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want_map = {str(s): 1023 - i for i, s in enumerate(SAT_SPEAKERS)}
+    bad = [(s, k) for _, s, mt in seen for k, v in mt.items() if not np.isfinite(v)]
+    if mapping != want_map or k2_launches != SAT_STEPS or [s for _, s, _ in seen] != \
+            list(range(1, SAT_STEPS + 1)) or bad:
+        raise RuntimeError(f"run_adapt: mapping {mapping}, K2 launches {k2_launches}, logged "
+                           f"steps {[s for _, s, _ in seen]}, non-finite {bad}")
+    files = set(os.listdir(out))
+    need = {"checkpoint.npz", "config.json", "spkid.map"} | \
+        {f"{v}.emo" for v in mapping.values()} | {f"{k}.emo" for k in mapping}
+    if need - files or any(not os.path.islink(os.path.join(out, f"{k}.emo")) for k in mapping):
+        raise RuntimeError(f"run_adapt's output lacks {sorted(need - files)} or its links")
+    window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
+    for _, s, mt in seen:
+        log(f"[sat] adapt step {s}: loss_g_total {mt['loss_g_total']:.4f}, loss_disc "
+            f"{mt['loss_disc']:.4f}, loss_mel {mt['loss_mel']:.4f}, loss_dur "
+            f"{mt['loss_dur']:.4f}")
+    log(f"[sat] run_adapt on the card in {wall:.1f} s: data prep {timed['prep']:.1f} s, "
+        f"training {timed['train']:.1f} s ({SAT_STEPS} steps, the build and the save "
+        f"included; step ms by window after the first {[round(w, 1) for w in window]}, median "
+        f"{np.median(window):.1f}), prune + greedy-soup export {timed['export']:.1f} s; K2 "
+        f"launches {k2_launches}; peak memory {peak:.2f} GiB; mapping {mapping}; wrote "
+        f"{sorted(files)}")
+    mas_err = _run_mas_equal_plain(dev, k2_calls, k2_launches, "[sat]")
+    del k2_calls
+    torch.cuda.empty_cache()
+
+    # the AOT export, as a user runs it
+    ckpt = os.path.join(out, "checkpoint.npz")
+    start = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vits_tpu_torch.export", "-o", out, "--checkpoint", ckpt,
+         "--convert", "1", "--text-buckets", ",".join(map(str, SAT_TEXT_BUCKETS)),
+         "--frame-buckets", ",".join(map(str, SAT_FRAME_BUCKETS)), "--device", "cuda",
+         "--verbose", "0"], env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True,
+        text=True, timeout=600)
+    export_s = time.perf_counter() - start
+    programs = sorted(f for f in os.listdir(out) if f.endswith(".pt2"))
+    n_want = len(SAT_TEXT_BUCKETS) * (1 + len(SAT_FRAME_BUCKETS))
+    if r.returncode != 0 or len(programs) != n_want:
+        raise RuntimeError(f"the export exited {r.returncode} with {len(programs)} of {n_want} "
+                           f"programs:\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    sizes = [os.path.getsize(os.path.join(out, f)) for f in programs]
+    log(f"[sat] `python -m vits_tpu_torch.export --convert 1 --device cuda` (text buckets "
+        f"{SAT_TEXT_BUCKETS}, frame buckets {SAT_FRAME_BUCKETS}): exit 0 in {export_s:.1f} s, "
+        f"{len(programs)} programs of {min(sizes) / 1e6:.2f}-{max(sizes) / 1e6:.2f} MB "
+        f"(checkpoint.npz {os.path.getsize(ckpt) / 1e6:.1f} MB)")
+
+    # the clone served in int8 by its external ids
+    rng = np.random.RandomState(SEED + 12)
+    model = EmoVITS(ckpt, device=str(dev), quantize=True)
+    if {k: model.spkid_mapping.get(k) for k in SAT_SPEAKERS} != \
+            {int(k): v for k, v in mapping.items()}:
+        raise RuntimeError(f"the engine's speaker map {model.spkid_mapping} is not {mapping}")
+    reqs = _sat_requests(model, N_CALIB + N_SAT_INT8, rng, dev, (40, 121), (250, 1000))
+    hop = model.hop_size
+    rb_chain.counter.launches = 0                       # main path starts here
+    served = []
+    for i, (spk, text, emo, rate) in enumerate(reqs):
+        before = rb_chain.counter.launches
+        np.random.seed(SEED + i)
+        wav, _ = model._infer_two_phase(spk, text, emo, duration_rate=rate)
+        served.append((wav, rb_chain.counter.launches - before))
+    k1_launches = rb_chain.counter.launches             # main path ends here
+    if model.dec_q8 is None:
+        raise RuntimeError(f"the clone's int8 decoder failed its gate (corr {model.q8_corr})")
+    dec_q8 = model.dec_q8
+    for i, ((wav_q, launched), (spk, text, emo, rate)) in enumerate(zip(served, reqs)):
+        frames = len(wav_q) // hop
+        if len(wav_q) % hop or not np.all(np.isfinite(wav_q)):
+            raise RuntimeError(f"[sat] request {i}: {len(wav_q)} samples, finite "
+                               f"{np.all(np.isfinite(wav_q))}")
+        if i < N_CALIB:
+            continue
+        want = k1_launches_per_decode(model.hps.model, frames, dev)
+        model.dec_q8, model.quantize = None, False
+        np.random.seed(SEED + i)
+        wav_f, _ = model._infer_two_phase(spk, text, emo, duration_rate=rate)
+        model.dec_q8, model.quantize = dec_q8, True
+        corr = _corr(wav_q, wav_f)
+        log(f"[sat] int8 request {i - N_CALIB}: speaker {spk} -> {model.spkid_mapping[spk]}, "
+            f"bank row {emo[1]}, {len(text)} tokens, {frames} frames, K1 launches {launched} "
+            f"(the plans: {want}), int8-vs-float corr {corr:.6f}")
+        if launched != want or not corr >= MIN_REQUEST_CORR:
+            raise RuntimeError(f"[sat] int8 request {i - N_CALIB}: K1 launches {launched} "
+                               f"(want {want}), corr {corr:.6f} (min {MIN_REQUEST_CORR})")
+    log(f"[sat] the clone in int8: gate corr {model.q8_corr:.6f} after {N_CALIB} calibration "
+        f"requests, {N_SAT_INT8} int8 requests, K1 launches {k1_launches}")
+    del model
+    torch.cuda.empty_cache()
+
+    # the AOT engine against eager two-phase float
+    aot = EmoVITS(ckpt, device=str(dev), aot=True)
+    eager = EmoVITS(ckpt, device=str(dev))
+    bundle = aot.aot
+    if bundle is None or bundle.text_buckets() != list(SAT_TEXT_BUCKETS) or any(
+            bundle.frame_buckets(t) != list(SAT_FRAME_BUCKETS) for t in SAT_TEXT_BUCKETS):
+        raise RuntimeError(f"the AOT engine found no bundle of the exported buckets in {out}")
+    shadow = _EagerPhases(bundle, aot.synth)
+    areqs = _sat_requests(aot, N_AOT, rng, dev, (20, 128), (150, 880))  # < 1024 frames
+    worst = 0.0
+    for i, (spk, text, emo, rate) in enumerate(areqs):
+        np.random.seed(SEED + 100 + i)
+        wav_a, _ = aot.infer(spk, text, emo, duration_rate=rate)
+        aot.aot = shadow
+        np.random.seed(SEED + 100 + i)
+        wav_e, _ = aot._infer_two_phase(spk, text, emo, duration_rate=rate)
+        aot.aot = bundle
+        err = float(np.abs(wav_a - wav_e).max()) if len(wav_a) == len(wav_e) else float("inf")
+        worst = max(worst, err)
+        if not err <= AOT_ATOL:
+            raise RuntimeError(f"[sat] AOT request {i}: {len(wav_a)} samples against "
+                               f"{len(wav_e)}, max_abs_err {err:.3e} (atol {AOT_ATOL})")
+    n_graphs = len(bundle.graphs)
+    spk, text, emo, rate = areqs[0]
+    long_text = np.concatenate([text] * (SAT_TEXT_BUCKETS[-1] // len(text) + 1))
+    np.random.seed(SEED + 99)
+    wav_a, _ = aot.infer(spk, long_text, emo, duration_rate=rate)
+    np.random.seed(SEED + 99)
+    wav_e, _ = eager._infer_two_phase(spk, long_text, emo, duration_rate=rate)
+    err_long = float(np.abs(wav_a - wav_e).max()) if len(wav_a) == len(wav_e) else float("inf")
+    if len(bundle.graphs) != n_graphs or not err_long <= AOT_ATOL:
+        raise RuntimeError(f"[sat] the {len(long_text)}-token request: {len(bundle.graphs)} "
+                           f"graphs (was {n_graphs}), max_abs_err {err_long:.3e} against eager")
+    log(f"[sat] AOT: {N_AOT} in-bucket requests of {[len(r[1]) for r in areqs]} tokens equal "
+        f"the eager two-phase float decode at the buckets' shapes (max_abs_err {worst:.3e}, "
+        f"atol {AOT_ATOL}); a {len(long_text)}-token request past the text buckets went eager "
+        f"(max_abs_err {err_long:.3e} against the eager engine, no new graph); "
+        f"{n_graphs} bucket graphs captured: "
+        + ", ".join(f"{'/'.join(map(str, k))} {v:.2f} s" for k, v in
+                    sorted(bundle.capture_s.items())))
+    lat = {"aot": [], "eager": []}
+    for rnd in range(AOT_ROUNDS):
+        for i, (spk, text, emo, rate) in enumerate(areqs):
+            for mode, fn in (("aot", aot.infer), ("eager", eager._infer_two_phase)):
+                np.random.seed(SEED + 100 + i)
+                (_, _), ms = _timed_call(fn, spk, text, emo, duration_rate=rate)
+                lat[mode].append(ms)
+    a, e = np.array(lat["aot"]), np.array(lat["eager"])
+    log(f"[sat] latency over {AOT_ROUNDS} rounds of the {N_AOT} requests in turns (fp32, "
+        f"two-phase float): AOT mean {a.mean():.2f} ms median {np.median(a):.2f} ms; eager "
+        f"mean {e.mean():.2f} ms median {np.median(e):.2f} ms; eager / AOT {e.mean() / a.mean():.2f}")
+
+    # the deployment reloaded through a .pth
+    pdir = os.path.join(workdir, "deploy_pth")
+    os.makedirs(pdir)
+    for fn in os.listdir(out):
+        if fn.endswith((".json", ".map", ".emo")):
+            shutil.copyfile(os.path.join(out, fn), os.path.join(pdir, fn))
+    save_torch_checkpoint(os.path.join(pdir, "clone.pth"), read_checkpoint(ckpt)[0]["model"])
+    pth = EmoVITS(os.path.join(pdir, "clone.pth"), device=str(dev))
+    spk, text, emo, rate = areqs[1]
+    np.random.seed(SEED + 7)
+    wav_p, _ = pth._infer_two_phase(spk, text, emo, duration_rate=rate)
+    np.random.seed(SEED + 7)
+    wav_n, _ = eager._infer_two_phase(spk, text, emo, duration_rate=rate)
+    err_pth = float(np.abs(wav_p - wav_n).max()) if len(wav_p) == len(wav_n) else float("inf")
+    log(f"[sat] the deployment reloaded from save_torch_checkpoint's .pth "
+        f"({os.path.getsize(os.path.join(pdir, 'clone.pth')) / 1e6:.1f} MB): {len(wav_p)} "
+        f"samples, max_abs_err {err_pth:.3e} against the .npz")
+    if not err_pth <= 1e-6:
+        raise RuntimeError("the .pth deployment serves another waveform than the .npz")
+    del aot, eager, pth
+    torch.cuda.empty_cache()
+
+    shapes, gin = k1_shapes("adapt")
+    tot, k1_err = _k1_at(dev, shapes, gin, "[sat]")
+    log(f"[sat] K1 at the 12 adapt-config chains of a {CHAIN_FRAMES}-frame request: kernel "
+        f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+        f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), {tot['launches']} launches")
+    return k1_launches, k2_launches, mas_err, k1_err
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -1650,6 +2066,11 @@ def main() -> int:
         torch.cuda.empty_cache()
         run_stft_launches, run_stft_mas_err = phase("run_stft", phase_run, dev, workdir,
                                                     "stft")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        sat_k1, sat_k2, sat_mas_err, sat_k1_err = phase("sat", phase_sat, dev, workdir)
+    if sat_k1 <= 0 or sat_k2 <= 0:
+        raise RuntimeError(f"the SAT path launched K1 {sat_k1} and K2 {sat_k2} times")
     card = card_line()
     main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
@@ -1657,8 +2078,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/rb_chain_q8.cu",
         "replaces": "vits_tpu/nn/pallas_rb.py:96",
-        "launches": launches + fused_launches + server_launches,
-        "max_abs_err": worst,
+        "launches": launches + fused_launches + server_launches + sat_k1,
+        "max_abs_err": max(worst, sat_k1_err),
         "ms": tot["ms"],
         "plain_ms": tot["plain_ms"],
         "bound_ms": tot["bound_ms"],
@@ -1681,8 +2102,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
-        "launches": mas_launches + stft_launches + run_launches + run_stft_launches,
-        "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err),
+        "launches": mas_launches + stft_launches + run_launches + run_stft_launches + sat_k2,
+        "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err, sat_mas_err),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -1690,9 +2111,10 @@ def main() -> int:
         "library_ms": None,
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
-        f"serving {launches}, fused {fused_launches}, servers {server_launches}, bf16 form "
-        f"{bf16_launches}; K2 launches: training {mas_launches}, training_stft "
-        f"{stft_launches}, run {run_launches}, run_stft {run_stft_launches}; phases: "
+        f"serving {launches}, fused {fused_launches}, servers {server_launches}, sat "
+        f"{sat_k1}, bf16 form {bf16_launches}; K2 launches: training {mas_launches}, "
+        f"training_stft {stft_launches}, run {run_launches}, run_stft {run_stft_launches}, "
+        f"sat {sat_k2}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

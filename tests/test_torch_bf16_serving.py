@@ -323,5 +323,5 @@ def test_serving_dtype_and_its_plumbing(deploy, monkeypatch):
     assert out["wav"][:4] == b"RIFF" and len(out["wav"]) > 44
     assert VITSWrap(deploy[0], device="cpu", compute_dtype="fp32").speecher.compute_dtype \
         == torch.float32
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="fp32"):  # AOT programs are fp32, as JAX's are
         TEmoVITS(deploy[0], device="cpu", aot=True)

@@ -11,6 +11,8 @@ where no CUDA device is present. Run on the GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (tests/conftest.py
 imports jax, which that machine need not have)."""
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -61,6 +63,55 @@ def test_chain_kernel_matches_plain(cuda, C, k, dil, B, M, form):
     peak = float(ref.abs().max())
     assert float(diff.max()) <= 0.05 * max(1.0, peak)
     assert float((diff > 1e-3 * peak).float().mean()) < 0.01
+
+
+def _tampered(p):
+    """Plans one number off the shape's own: each must be refused."""
+    if p.form == "chain":
+        o = p.offsets
+        return [dataclasses.replace(p, **kw) for kw in (
+            {"T": p.T + 32}, {"T": p.T + 1}, {"halo": p.halo - 1}, {"smem": p.smem + 16},
+            {"grid": p.grid + 1}, {"resident": not p.resident},
+            {"offsets": (o[0], o[1] + 16) + o[2:]})]
+    (a, bar, smem), rest = p.offsets[0], p.offsets[1:]
+    return [dataclasses.replace(p, offsets=((a + 64, bar, smem),) + rest),
+            dataclasses.replace(p, offsets=((a, bar, smem + 8),) + rest),
+            dataclasses.replace(p, offsets=rest[:1] + rest[:1] + rest[1:])]
+
+
+@pytest.mark.parametrize("C,k,B,M", [(64, 7, 2, 700), (32, 11, 1, 4800), (256, 3, 1, 300)])
+def test_chain_kernel_refuses_a_tampered_plan(cuda, C, k, B, M):
+    """rb2_chain_q8 / rb2_split_q8 recompute the plan from the shape and
+    refuse numbers that differ: a caller's plan (chain_q8_cuda's tuning
+    hook) one tile, halo, byte, block or offset off raises and launches
+    nothing, while another tile the rules allow runs and matches."""
+    dil = (1, 3, 5)
+    gen = torch.Generator().manual_seed(C * k)
+    rb = init_weights(ResBlock2(C, k, dil, 16), gen).to(cuda).eval()
+    x = torch.randn(B, M, C, generator=gen).to(cuda)
+    lens = torch.full((B,), M - 5, dtype=torch.int32, device=cuda)
+    mask = (torch.arange(M, device=cuda)[None] < lens[:, None]).float()[..., None]
+    x = x * mask
+    g = torch.randn(B, 16, generator=gen).to(cuda)
+    with torch.no_grad():
+        rec = {}
+        rb(x, g, x_mask=mask, record=rec)
+        qp = rb.quantize_params(rec)
+        gs = torch.stack([rb.conds[str(i)](g) for i in range(len(dil))], 1).float()
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = rb_chain.plan(B, M, C, k, dil, n_sm)
+    for bad in _tampered(p):
+        before = rb_chain.counter.launches
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            rb_chain.chain_q8_cuda(qp, x, gs, lens, bad)
+        assert rb_chain.counter.launches == before
+    ref = rb_chain.chain_q8_plain(qp, x, gs, lens)
+    others = [rb_chain.chain_plan(B, M, C, k, dil, T, n_sm) for T in (64, 96)] \
+        if p.form == "chain" else [p]
+    for q in filter(None, others):
+        out = rb_chain.chain_q8_cuda(qp, x, gs, lens, q)
+        torch.cuda.synchronize()
+        assert float((out - ref).abs().max()) <= 0.05 * max(1.0, float(ref.abs().max()))
 
 
 @pytest.mark.parametrize("C,up", [(32, 192), (64, 96), (128, 48), (256, 8)])

@@ -37,9 +37,12 @@ def test_import_loads_no_jax_and_no_vits_tpu():
             "training = {'vits_tpu_torch.' + m for m in ('config', 'utils.audio',\n"
             "            'utils.checkpoint', 'utils.summary', 'train.data', 'train.loop',\n"
             "            'train.step', 'train.__main__')}\n"
-            "missing = (serving | training) - set(mods)\n"
+            "deploy = {'vits_tpu_torch.' + m for m in ('export', 'sat', 'serve.aot',\n"
+            "          'serve.sat_api', 'toolkits.trim_sil', 'toolkits.cluster_emotion',\n"
+            "          'toolkits.extract_emotion')}\n"
+            "missing = (serving | training | deploy) - set(mods)\n"
             "print(len(mods), bad, missing)\n"
-            "sys.exit(1 if bad or len(mods) < 36 or missing else 0)\n")
+            "sys.exit(1 if bad or len(mods) < 44 or missing else 0)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr
 
@@ -77,14 +80,35 @@ def test_serving_front_needs_a_gpu_unless_cpu_is_asked(tmp_path):
 
 @pytest.mark.parametrize("how", ["argument", "environment"])
 def test_aot_serving_is_refused(tmp_path, monkeypatch, how):
-    """AOT serving is not ported: asking for it raises and names the
-    ROADMAP item rather than serving another path."""
+    """AOT serving outside fp32 is refused, by argument or by VITS_TPU_AOT,
+    before anything is read: the programs are exported at fp32, as the JAX
+    package's are."""
     from vits_tpu_torch.infer import EmoVITS
     kw = {"aot": True} if how == "argument" else {}
     if how == "environment":
         monkeypatch.setenv("VITS_TPU_AOT", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A5"):
-        EmoVITS(str(tmp_path / "checkpoint.npz"), device="cpu", **kw)
+    with pytest.raises(ValueError, match="fp32"):
+        EmoVITS(str(tmp_path / "checkpoint.npz"), device="cpu", compute_dtype="bf16", **kw)
+
+
+def test_export_programs_need_a_gpu_unless_cpu_is_asked(tmp_path):
+    """`python -m vits_tpu_torch.export --convert 1` traces on the card
+    unless --device cpu is given, and refuses before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    import json
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.export import main
+    from vits_tpu_torch.utils.checkpoint import save_checkpoint
+    from vits_tpu_torch.utils.torch_compat import params_template
+    hps = get_hparams_from_file(default_config_path("adapt"))
+    with open(tmp_path / "config.json", "w") as f:
+        json.dump(hps.to_dict(), f)
+    save_checkpoint(str(tmp_path / "G_1.npz"), {"model": params_template(hps)})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["-o", str(tmp_path / "out"), "--checkpoint", str(tmp_path), "--convert", "1",
+              "--verbose", "0"])
+    assert not os.path.exists(tmp_path / "out")
 
 
 def test_training_state_needs_a_gpu_unless_cpu_is_asked():

@@ -13,9 +13,9 @@ from vits_tpu_torch.nn import rb_chain
 from vits_tpu_torch.nn.core import init_weights
 
 
-def _base_chains():
-    """(C, k, dilations, M at 256 frames) of the base config's 12 chains."""
-    m = get_hparams_from_file(default_config_path("base")).model
+def _chains(name="base"):
+    """(C, k, dilations, M at 256 frames) of a config's 12 chains."""
+    m = get_hparams_from_file(default_config_path(name)).model
     out, up = [], 1
     for s, u in enumerate(m.upsample_rates):
         up *= u
@@ -24,7 +24,8 @@ def _base_chains():
     return out
 
 
-BASE = _base_chains()
+BASE = _chains()
+ADAPT = _chains("adapt")  # 8 kHz, hop 96: M = T_y x (6, 24, 48, 96)
 # the longest fused frame budget (the 4096-frame noise ring) at the last stage
 FUSED_M = 4096 * 192
 # the forms the arithmetic gives: a whole-chain tile of 64 frames fits beside
@@ -60,6 +61,28 @@ def test_plan_base_chain(C, k, dil, M256):
                                           for d in dil for mode in (0, 1))
                 assert p.smem == max(lay[-1] for lay in p.offsets)
     assert rb_chain.plan(1, M256, C, k, dil).launches == (6 if (C, k) in SPLIT else 1)
+
+
+@pytest.mark.parametrize("C,k,dil,M256", ADAPT, ids=[f"C{c}-k{k}" for c, k, _, _ in ADAPT])
+def test_plan_adapt_chain(C, k, dil, M256):
+    """Every chain of configs/adapt.json (upsampling 6, 4, 2, 2; the base
+    config's channels, kernels and dilations) has a whole-chain or a split
+    form at the lengths a cloned voice's requests give (T_y of 1-2000
+    frames, and the [sat] phase's 256) and the fused budget's, within
+    shared memory, with the launches the K1 count of chip_smoke.py's [sat]
+    phase expects: 37 a decode."""
+    up = M256 // 256
+    assert rb_chain.kernel_form(C, k, dil) == ("split" if (C, k) in SPLIT else "chain")
+    for t_y in (1, 37, 256, 700, 1000, 2000, 4096):
+        p = rb_chain.plan(1, t_y * up, C, k, dil)
+        assert p.form == rb_chain.kernel_form(C, k, dil)
+        assert p.smem <= rb_chain.SMEM_LIMIT and 1 <= p.grid
+        assert p.launches == (6 if p.form == "split" else 1)
+        if p.form == "chain":
+            assert p.T % 32 == 0 and 64 <= p.T <= 512
+            assert p.offsets + (p.smem,) == rb_chain.chain_layout(
+                C, k, len(dil), p.T, p.halo, p.resident)
+    assert sum(rb_chain.plan(1, M, C, k, dil).launches for C, k, dil, M in ADAPT) == 37
 
 
 def test_plan_refuses_shapes_without_a_kernel():

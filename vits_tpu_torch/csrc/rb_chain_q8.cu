@@ -709,6 +709,73 @@ rb2_split_kernel(const IO* __restrict__ x,       // the dilation's input (residu
   }
 }
 
+// The plan's rules (vits_tpu_torch/nn/rb_chain.py: chain_halo, _k2,
+// chain_layout, _chain_fit, chain_blocks_per_sm, split_layout, CHAIN_TILES),
+// copied here so that a launch refuses a plan that does not fit its shape, as
+// mas_forward does: a wrong offset or tile would compute a wrong chain with
+// no error. Change both together.
+constexpr int kSmemLimit = 232448;   // dynamic shared memory a block may use
+constexpr int kSmShared = 233472;    // shared memory of one SM
+constexpr int kChainSlack = 64;      // rows read past a tile by the last wgmma tile
+
+int align_up(int n, int m) { return (n + m - 1) / m * m; }
+int k2_of(int C) { return C / 2 > 32 ? C / 2 : 32; }
+
+struct ChainLayout {
+  int off_xs, off_q, off_g, off_bar, total;
+};
+
+ChainLayout chain_layout(int C, int K, int nd, int T, int halo, bool resident) {
+  const int wbytes = (resident ? nd : 1) * K * C * (C + k2_of(C));
+  const int R = T + 2 * halo;
+  ChainLayout l;
+  l.off_xs = align_up(wbytes, 16);
+  l.off_q = l.off_xs + R * (C + 8) * 4;
+  l.off_g = l.off_q + (R + kChainSlack) * C;
+  l.off_bar = align_up(l.off_g + (R + kChainSlack) * k2_of(C), 8);
+  l.total = l.off_bar + 16;
+  return l;
+}
+
+// the whole-chain plan's numbers against those its rules give at this shape
+// on this device: T a tile the plan weighs, the halo of the dilations, the
+// residency _chain_fit picks, every offset, smem, and the persistent grid
+bool chain_plan_ok(int B, int M, int C, int K, int nd, const int* dil, int T, int halo,
+                   int resident, int off_xs, int off_q, int off_g, int off_bar, int smem,
+                   int grid) {
+  if (T < 64 || T > 512 || T % 32 || (resident != 0 && resident != 1)) return false;
+  int h = 0;
+  for (int i = 0; i < nd; ++i) {
+    if (dil[i] < 1) return false;
+    h += (dil[i] + 1) * (K - 1) / 2;
+  }
+  if (halo != h) return false;
+  const bool fits_resident = chain_layout(C, K, nd, T, h, true).total <= kSmemLimit;
+  const ChainLayout l = chain_layout(C, K, nd, T, h, fits_resident);
+  if (resident != static_cast<int>(fits_resident) || l.total > kSmemLimit) return false;
+  if (off_xs != l.off_xs || off_q != l.off_q || off_g != l.off_g || off_bar != l.off_bar ||
+      smem != l.total)
+    return false;
+  int dev = 0, n_sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return false;
+  const long tiles = static_cast<long>(B) * ((M + T - 1) / T);
+  const int per_sm = (C == 32 && 2 * (smem + 1024) <= kSmShared) ? 2 : 1;
+  return grid == (tiles < per_sm * n_sm ? tiles : per_sm * n_sm);
+}
+
+// a split launch's layout (split_layout): the weight ring, the int8 input
+// tile of 64 + (k - 1) step rows, one mbarrier per stage
+bool split_plan_ok(int C, int K, int d, int mode, int off_a, int off_bar, int smem) {
+  if (d < 1) return false;
+  const int k_in = mode == 0 ? C : C / 2;
+  const int rows = kSplitRows + (K - 1) * (mode == 0 ? d : 1);
+  const int a = kStages * k_in * kSplitNB;
+  const int bar = align_up(a + rows * k_in, 8);
+  return off_a == a && off_bar == bar && smem == bar + 8 * kStages && smem <= kSmemLimit;
+}
+
 // sets a kernel's dynamic shared-memory limit once per size it has not seen
 template <typename F>
 cudaError_t allow_smem(F* kernel, int smem, int& allowed) {
@@ -770,15 +837,18 @@ cudaError_t launch_split_c(int mode, const void* x, int8_t* gate, int8_t* xq, vo
 extern "C" {
 
 // The whole chain (nd <= 3 dilations) in one launch; the tile geometry and
-// the shared-memory offsets come from the wrapper's plan. x and out are
-// float32, or bfloat16 where bf16 is 1. Returns the cudaError_t of the
-// launch (0 on success).
+// the shared-memory offsets come from the wrapper's plan, and numbers that
+// do not match the shape are refused (chain_plan_ok). x and out are float32,
+// or bfloat16 where bf16 is 1. Returns the cudaError_t of the launch (0 on
+// success).
 int rb2_chain_q8(const void* x, void* out, const int8_t* wq, const float* vec, const float* gs,
                  const int* valid, int B, int M, int C, int K, int nd, int d0, int d1, int d2,
                  int T, int halo, int resident, int off_xs, int off_q, int off_g, int off_bar,
                  int smem, int grid, int bf16, void* stream) {
-  if (B <= 0 || M <= 0 || T <= 0 || grid <= 0 || K % 2 == 0 || nd < 1 || nd > 3 ||
-      (bf16 != 0 && bf16 != 1))
+  const int dil[3] = {d0, d1, d2};
+  if (B <= 0 || M <= 0 || K % 2 == 0 || nd < 1 || nd > 3 || (bf16 != 0 && bf16 != 1) ||
+      !chain_plan_ok(B, M, C, K, nd, dil, T, halo, resident, off_xs, off_q, off_g, off_bar,
+                     smem, grid))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RB2_CHAIN(TT, CC)                                                                     \
@@ -801,11 +871,13 @@ int rb2_chain_q8(const void* x, void* out, const int8_t* wq, const float* vec, c
 
 // One half of dilation i of nd: mode 0 conv1 + gate (x, or xq past the
 // first dilation -> gate), mode 1 conv2 + b2 + residual + mask (gate, x ->
-// out, and xq for the next dilation). x and out as in rb2_chain_q8.
+// out, and xq for the next dilation). x and out as in rb2_chain_q8. A
+// layout other than split_layout's for (C, K, d, mode) is refused.
 int rb2_split_q8(int mode, const void* x, int8_t* gate, int8_t* xq, void* out, const int8_t* wq,
                  const float* vec, const float* gs, const int* valid, int B, int M, int C, int K,
                  int d, int i, int nd, int off_a, int off_bar, int smem, int bf16, void* stream) {
-  if (B <= 0 || M <= 0 || K % 2 == 0 || (mode != 0 && mode != 1) || (bf16 != 0 && bf16 != 1))
+  if (B <= 0 || M <= 0 || K % 2 == 0 || (mode != 0 && mode != 1) || (bf16 != 0 && bf16 != 1) ||
+      nd < 1 || i < 0 || i >= nd || !split_plan_ok(C, K, d, mode, off_a, off_bar, smem))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

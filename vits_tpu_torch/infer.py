@@ -20,6 +20,14 @@ noise ring, and three synthesis paths:
   windows with a receptive-field halo, yielding each window's interior; the
   chunks concatenate to the two-phase output.
 
+With `aot=True` (or `VITS_TPU_AOT=1`) the engine serves from the bucketed
+programs that `python -m vits_tpu_torch.export --convert 1` writes beside
+the checkpoint (`serve/aot.py`; CUDA graphs on the GPU): `infer` stays
+two-phase, phase 1 runs the text bucket's program, phase 2 the frame
+bucket's unless the int8 decoder serves, and a request past the buckets runs
+eagerly. fp32 only; a directory without programs logs a warning and serves
+eagerly.
+
 With `quantize=True` the first `VITS_TPU_Q8_CALIB_REQUESTS` requests
 (default 8) are served two-phase by the float decoder while their
 activation max-abs values are recorded; the decoder is then quantized and,
@@ -108,11 +116,10 @@ class EmoVITS:
         self.loglv = loglv
         if aot is None:
             aot = _env_flag("VITS_TPU_AOT", "0")
-        if aot:
-            raise NotImplementedError(
-                "AOT serving (the bucketed graphs of vits_tpu/serve/aot.py) is not ported: "
-                "ROADMAP.md A5, CUDA graphs of phase 2 per bucket")
         self.compute_dtype = serving_dtype(compute_dtype)
+        if aot and self.compute_dtype != torch.float32:
+            raise ValueError("AOT programs are exported at fp32; "
+                             "use compute_dtype=fp32 with aot=True")
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -161,6 +168,20 @@ class EmoVITS:
                                                       torch_compat.params_template(hps))
         self.synth = params_from_jax(tree, Synthesizer.from_hps(hps))
         self.synth.to(self.device, self.compute_dtype).eval()
+
+        # AOT serving: the bucketed programs `export --convert 1` writes
+        # beside checkpoint.npz, run on the model's own weights. Requests past
+        # the buckets take the eager path.
+        self.aot = None
+        if aot:
+            from vits_tpu_torch.serve.aot import AOTBundle
+            bundle = AOTBundle(self.res_root_path, self.device)
+            if bundle.text_buckets():
+                self.aot = bundle
+                self._aot_params = dict(self.synth.state_dict())
+            else:
+                logger.warning("aot=True but no .pt2 programs in %s; serving from the "
+                               "eager path", self.res_root_path)
 
         # pre-sampled noise ring buffer; the fused path slices a device copy
         rng = np.random.RandomState(12345)
@@ -267,15 +288,17 @@ class EmoVITS:
             emo_vec = self._get_spk_emo_embed(emo)
         return spkid, emo_vec, x_length
 
-    def _run_phase1(self, spkid, text, emo_vec, x_length, x_pad):
+    def _run_phase1(self, spkid, text, emo_vec, x_length, x_pad, aot_tb=None):
         x = np.zeros((1, x_pad, self.text_channels), np.float32)
         x[0, :x_length] = text[:x_pad]
         x_mask = np.zeros((1, x_pad, 1), np.float32)
         x_mask[0, :x_length] = 1.0
         dt = self.compute_dtype
-        return self.synth.infer_p1(self._tensor(x, dt), self._tensor(emo_vec[None], dt),
-                                   self._tensor([spkid], torch.long),
-                                   x_mask=self._tensor(x_mask, dt))
+        x, x_mask = self._tensor(x, dt), self._tensor(x_mask, dt)
+        emo, sid = self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long)
+        if aot_tb:
+            return self.aot.call_p1(aot_tb, self._aot_params, x, x_mask, emo, sid)
+        return self.synth.infer_p1(x, emo, sid, x_mask=x_mask)
 
     def _alignment(self, w_ceil, x_length, x_pad, y_length, y_pad):
         """Host-side duration expansion + noise-ring slice, in the compute
@@ -341,9 +364,11 @@ class EmoVITS:
     def infer(self, spkid: int, text: np.ndarray, emo=None, *,
               duration_rate: float = 1.0):
         """text: (N, text_channels) float32 -> (wav float32 (T,), emotion
-        vector used). The fused path unless VITS_TPU_FUSED=0, or while the
-        int8 decoder calibrates (its record needs phase 1's outputs)."""
-        if self._prefer_fused and (not self.quantize or self.dec_q8 is not None):
+        vector used). The fused path unless VITS_TPU_FUSED=0, while the int8
+        decoder calibrates (its record needs phase 1's outputs), or while an
+        AOT bundle serves (its programs are the two phases)."""
+        if self._prefer_fused and self.aot is None and \
+                (not self.quantize or self.dec_q8 is not None):
             return self.infer_fused(spkid, text, emo, duration_rate=duration_rate)
         return self._infer_two_phase(spkid, text, emo, duration_rate=duration_rate)
 
@@ -356,20 +381,28 @@ class EmoVITS:
     def _two_phase(self, spkid: int, emo_vec: np.ndarray, text: np.ndarray, x_length: int,
                    duration_rate: float):
         """Two-phase synthesis of a resolved request (speaker remapped,
-        emotion vector chosen)."""
-        x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
-        m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
+        emotion vector chosen). With an AOT bundle, phase 1 runs its text
+        bucket's program, and phase 2 its frame bucket's unless the int8
+        decoder serves; a request past the buckets runs eagerly."""
+        aot_tb = self.aot.pick_text_bucket(x_length) if self.aot else None
+        x_pad = aot_tb or self._quantize(x_length, self.text_quantum, self.max_text_len)
+        m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad, aot_tb)
 
         # host: durations -> alignment
         w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
         w_ceil = np.ceil(w)
         y_length = max(int(w_ceil.sum()), 1)
-        y_pad = self._quantize(y_length, self.frame_quantum)
+        aot_fb = (self.aot.pick_frame_bucket(aot_tb, y_length)
+                  if aot_tb and not self.quantize else None)
+        y_pad = aot_fb or self._quantize(y_length, self.frame_quantum)
         attn, noise, y_mask = self._alignment(w_ceil, x_length, x_pad, y_length, y_pad)
-        dec_q8 = None
         if self.quantize and self._q8_observe(attn, m_p, s_p, g, noise, y_mask):
-            dec_q8 = self.dec_q8
-        wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask, dec_q8=dec_q8)
+            wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask, dec_q8=self.dec_q8)
+        elif aot_fb:
+            wav = self.aot.call_p2(aot_tb, aot_fb, self._aot_params, attn, m_p, s_p, g,
+                                   noise, y_mask)
+        else:
+            wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
         wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
         return wav, emo_vec
 

@@ -370,9 +370,11 @@ def _raise_on(lib, err: int, what: str):
 def chain_q8_cuda(qp: Dict, x: torch.Tensor, gs: torch.Tensor, valid: torch.Tensor,
                   p: Optional[Plan] = None) -> torch.Tensor:
     """Launch the kernel on the current stream as `plan` (or the given plan
-    of the same form, for tuning) says: once per chain (whole-chain form) or
-    twice per dilation (split form). x float32 or bfloat16: the kernel's
-    form of that I/O type; the output has x's dtype."""
+    of the same form, for tuning: another tile of `chain_plan`) says: once
+    per chain (whole-chain form) or twice per dilation (split form). The C
+    entries recompute the plan's numbers from the shape and refuse, with
+    "invalid argument", any that differ. x float32 or bfloat16: the
+    kernel's form of that I/O type; the output has x's dtype."""
     B, M, C = x.shape
     K, dil = qp["kernel_size"], tuple(qp["dilation"])
     n = len(dil)

@@ -1,5 +1,7 @@
-"""Reference PyTorch checkpoints -> the JAX package's parameter tree (own
-copy of the load half of vits_tpu/utils/torch_compat.py, in numpy).
+"""Reference PyTorch checkpoints <-> the JAX package's parameter tree (own
+copy of vits_tpu/utils/torch_compat.py, in numpy): the load half
+(`load_torch_checkpoint`) and the save half (`export_torch_state_dict`,
+`save_torch_checkpoint`).
 
 The reference ships `.pth` files holding `{"model": state_dict, ...}`. The
 JAX parameter tree mirrors the reference's module paths (for example
@@ -16,7 +18,9 @@ layout transpose into a template tree:
   Embedding     (n, d)              -> (n, d)
 
 The filled tree goes through `vits_tpu_torch.convert.params_from_jax` as a
-`.npz` tree does, which folds the weight-norm (g, v) pairs for serving.
+`.npz` tree does, which folds the weight-norm (g, v) pairs for serving. The
+save half is the inverse: a JAX tree becomes the reference's state_dict, key
+for key, shape for shape and value for value as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -77,15 +81,21 @@ def _resolve_leaf_name(node: Mapping[str, Any], torch_leaf: str) -> str:
     return torch_leaf
 
 
+def tree_template(build) -> Dict[str, Any]:
+    """The JAX parameter tree of the module `build()` returns, with zero
+    leaves. The module is built on the meta device, so no weights are
+    initialised."""
+    with torch.device("meta"):
+        model = build()
+    return params_to_jax({k: torch.zeros(v.shape) for k, v in model.state_dict().items()})
+
+
 def params_template(hps) -> Dict[str, Any]:
     """The JAX parameter tree of `hps`'s synthesizer (posterior encoder and
     weight-norm g/v pairs included, as `init_params` gives it) with zero
-    leaves: the slots a reference state_dict fills. Built from the port's
-    training model on the meta device, so no weights are initialised."""
+    leaves: the slots a reference state_dict fills."""
     from vits_tpu_torch.models.synthesizer import Synthesizer
-    with torch.device("meta"):
-        model = Synthesizer.from_hps(hps, train=True)
-    return params_to_jax({k: torch.zeros(v.shape) for k, v in model.state_dict().items()})
+    return tree_template(lambda: Synthesizer.from_hps(hps, train=True))
 
 
 def load_torch_state_dict(state_dict: Mapping[str, Any], target_params: Dict[str, Any],
@@ -122,7 +132,9 @@ def load_torch_state_dict(state_dict: Mapping[str, Any], target_params: Dict[str
             conv = arr.reshape(np.shape(tgt))
         else:
             conv = _convert(key, arr, np.shape(tgt))
-        node[leaf] = np.asarray(conv, dtype=np.asarray(tgt).dtype)
+        # C order, as a .npz leaf is: the weight-norm fold then sums in the
+        # same order, and a .pth serves the same waveform as its .npz
+        node[leaf] = np.ascontiguousarray(conv, dtype=np.asarray(tgt).dtype)
         filled.add((tuple(path[:-1]), leaf))
     missing = sorted(_leaf_paths(params) - filled)
     if missing:
@@ -150,3 +162,78 @@ def load_torch_checkpoint(path: str, target_params: Dict[str, Any], **kw) -> Dic
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state = ckpt.get("model", ckpt)
     return load_torch_state_dict(state, target_params, **kw)
+
+
+# ---------------------------------------------------------------------------
+# save half: the JAX tree -> a reference-layout torch state_dict
+# ---------------------------------------------------------------------------
+
+def _unconvert(key: str, arr: np.ndarray) -> np.ndarray:
+    """A kernel leaf in the JAX layout -> the torch layout (the reference's
+    `_unconvert` without its weight_g branch: every g leaf is reshaped by
+    export_torch_state_dict before this is reached)."""
+    if arr.ndim <= 1:
+        return arr
+    if arr.ndim == 2:
+        return arr.transpose(1, 0)
+    if arr.ndim == 3:
+        if ".ups." in key:
+            return arr.transpose(1, 2, 0)  # (k,in,out)->(in,out,k)
+        return arr.transpose(2, 1, 0)      # (k,in,out)->(out,in,k)
+    if arr.ndim == 4:
+        return arr.transpose(3, 2, 0, 1)   # (kh,kw,in,out)->(out,in,kh,kw)
+    raise ValueError(f"cannot unconvert {key} with shape {arr.shape}")
+
+
+_SAVE_NAMES = {"w": "weight", "b": "bias", "v": "weight_v", "g": "weight_g",
+               "embedding": "weight", "w_orig": "weight_orig", "u": "weight_u"}
+_AS_IS = ("gamma", "beta", "b", "u", "weight", "alpha", "m", "logs")
+
+
+def export_torch_state_dict(params: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Flatten a JAX parameter tree into a reference-layout torch state_dict
+    of numpy arrays (wrap with torch.as_tensor for torch.save): the inverse
+    of load_torch_state_dict up to spectral-norm u buffers. Keys come in the
+    JAX package's order: a node's subtrees first, then its leaves."""
+    out: Dict[str, np.ndarray] = {}
+
+    def rec(node, prefix):
+        if not isinstance(node, Mapping):
+            out[prefix] = np.asarray(node)
+            return
+        leafs = {k: v for k, v in node.items() if not isinstance(v, Mapping)}
+        for k, v in node.items():
+            if isinstance(v, Mapping):
+                rec(v, f"{prefix}.{k}" if prefix else k)
+        for k, v in leafs.items():
+            arr = np.asarray(v)
+            name = _SAVE_NAMES.get(k, k)
+            if k in ("gamma", "beta") and prefix.endswith("emb.1"):
+                # nn.LayerNorm (enc_p.emb.1) names them weight/bias;
+                # modules.LayerNorm keeps gamma/beta
+                name = "weight" if k == "gamma" else "bias"
+            key = f"{prefix}.{name}" if prefix else name
+            if k == "embedding":
+                out[key] = arr
+            elif k == "g":
+                sib = leafs.get("v")
+                if sib is not None and np.asarray(sib).ndim == 2:
+                    out[key] = arr.reshape(-1, 1)  # Linear weight_g (out,1)
+                else:  # conv (out,) and ConvTranspose (1,in,1) alike
+                    out[key] = arr.reshape(-1, 1, 1)
+            elif k in _AS_IS:
+                out[key] = arr
+            else:
+                out[key] = _unconvert(key, arr)
+
+    rec(params, "")
+    return out
+
+
+def save_torch_checkpoint(path: str, params: Dict[str, Any], iteration: int = 0):
+    """Write a reference-compatible {'model': state_dict, 'iteration': N}
+    .pth, the file the JAX package's save_torch_checkpoint writes from the
+    same tree."""
+    state = {k: torch.as_tensor(np.ascontiguousarray(v))
+             for k, v in export_torch_state_dict(params).items()}
+    torch.save({"model": state, "iteration": iteration}, path)
