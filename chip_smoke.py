@@ -1707,10 +1707,10 @@ class _EagerPhases:
         self.pick_text_bucket = bundle.pick_text_bucket
         self.pick_frame_bucket = bundle.pick_frame_bucket
 
-    def call_p1(self, t_bucket, params, x, x_mask, emo, sid):
+    def call_p1(self, t_bucket, x, x_mask, emo, sid):
         return self.synth.infer_p1(x, emo, sid, x_mask=x_mask)
 
-    def call_p2(self, t_bucket, f_bucket, params, *args):
+    def call_p2(self, t_bucket, f_bucket, *args):
         return self.synth.infer_p2(*args)
 
 

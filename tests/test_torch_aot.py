@@ -87,7 +87,7 @@ def test_bundle_buckets_and_artifacts(aot_dir):
     """The bucket lists and picks of the JAX bundle, and artifacts that hold
     no weights: every program takes them as an input."""
     d = aot_dir[0]
-    bundle = AOTBundle(d, "cpu")
+    bundle = AOTBundle(d, {}, "cpu")
     assert bundle.text_buckets() == [32]
     assert bundle.frame_buckets(32) == [64, 128]
     assert bundle.frame_buckets(64) == []
@@ -121,12 +121,12 @@ def test_programs_match_eager_and_jax(aot_dir, fb):
     d, js, params = aot_dir
     folded = fold_weight_norm(params)
     model = TEmoVITS(_ckpt(d), device="cpu", aot=True)
-    synth, w = model.synth, model._aot_params
+    synth = model.synth
     rng = np.random.RandomState(fb)
     x, x_mask, emo, sid = _phase1_inputs(rng)
     tx = [torch.from_numpy(a) for a in (x, x_mask, emo)] + [torch.from_numpy(sid).long()]
     with torch.inference_mode():
-        got1 = model.aot.call_p1(32, w, *tx)
+        got1 = model.aot.call_p1(32, *tx)
         eager1 = synth.infer_p1(tx[0], tx[2], tx[3], x_mask=tx[1])
     want1 = jax.jit(lambda p, a, m, e, s: js.infer_p1(p, a, e, s, x_mask=m))(
         folded, x, x_mask, emo, sid)
@@ -144,7 +144,7 @@ def test_programs_match_eager_and_jax(aot_dir, fb):
     y_mask = torch.zeros(1, fb, 1)
     y_mask[0, :y_len] = 1.0
     with torch.inference_mode():
-        got2 = model.aot.call_p2(32, fb, w, attn, m_p, s_p, g, noise, y_mask)
+        got2 = model.aot.call_p2(32, fb, attn, m_p, s_p, g, noise, y_mask)
         eager2 = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
     torch.testing.assert_close(got2, eager2, rtol=0, atol=0)
     want2 = jax.jit(lambda p, a, m, s, gg, n, ym: js.infer_p2(p, a, m, s, gg, n, y_mask=ym))(

@@ -79,17 +79,12 @@ def _tampered(p):
             dataclasses.replace(p, offsets=rest[:1] + rest[:1] + rest[1:])]
 
 
-@pytest.mark.parametrize("C,k,B,M", [(64, 7, 2, 700), (32, 11, 1, 4800), (256, 3, 1, 300)])
-def test_chain_kernel_refuses_a_tampered_plan(cuda, C, k, B, M):
-    """rb2_chain_q8 / rb2_split_q8 recompute the plan from the shape and
-    refuse numbers that differ: a caller's plan (chain_q8_cuda's tuning
-    hook) one tile, halo, byte, block or offset off raises and launches
-    nothing, while another tile the rules allow runs and matches."""
-    dil = (1, 3, 5)
-    gen = torch.Generator().manual_seed(C * k)
+def _chain_case(cuda, C, k, dil, B, M, seed):
+    """A quantized ResBlock2 and its masked input (every length M - 5)."""
+    gen = torch.Generator().manual_seed(seed)
     rb = init_weights(ResBlock2(C, k, dil, 16), gen).to(cuda).eval()
     x = torch.randn(B, M, C, generator=gen).to(cuda)
-    lens = torch.full((B,), M - 5, dtype=torch.int32, device=cuda)
+    lens = torch.full((B,), max(M - 5, 1), dtype=torch.int32, device=cuda)
     mask = (torch.arange(M, device=cuda)[None] < lens[:, None]).float()[..., None]
     x = x * mask
     g = torch.randn(B, 16, generator=gen).to(cuda)
@@ -98,6 +93,17 @@ def test_chain_kernel_refuses_a_tampered_plan(cuda, C, k, B, M):
         rb(x, g, x_mask=mask, record=rec)
         qp = rb.quantize_params(rec)
         gs = torch.stack([rb.conds[str(i)](g) for i in range(len(dil))], 1).float()
+    return qp, x, gs, lens
+
+
+@pytest.mark.parametrize("C,k,B,M", [(64, 7, 2, 700), (32, 11, 1, 4800), (256, 3, 1, 300)])
+def test_chain_kernel_refuses_a_tampered_plan(cuda, C, k, B, M):
+    """rb2_chain_q8 / rb2_split_q8 recompute the plan from the shape and
+    refuse numbers that differ: a caller's plan (chain_q8_cuda's tuning
+    hook) one tile, halo, byte, block or offset off raises and launches
+    nothing, while another tile the rules allow runs and matches."""
+    dil = (1, 3, 5)
+    qp, x, gs, lens = _chain_case(cuda, C, k, dil, B, M, C * k)
     n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
     p = rb_chain.plan(B, M, C, k, dil, n_sm)
     for bad in _tampered(p):
@@ -112,6 +118,34 @@ def test_chain_kernel_refuses_a_tampered_plan(cuda, C, k, B, M):
         out = rb_chain.chain_q8_cuda(qp, x, gs, lens, q)
         torch.cuda.synchronize()
         assert float((out - ref).abs().max()) <= 0.05 * max(1.0, float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("B,M", [(1, 37), (2, 1536), (1, 24576)])
+@pytest.mark.parametrize("C,k,dil", [(32, 3, (1, 3, 5)), (32, 11, (1, 3, 5)), (64, 7, (1, 3, 5)),
+                                     (64, 3, (1, 3)), (128, 3, (1, 3, 5)), (128, 7, (1, 3, 5)),
+                                     (256, 11, (1, 3, 5))])
+def test_chain_plan_agrees_with_the_kernel(cuda, C, k, dil, B, M):
+    """The C entries keep their own copy of nn/rb_chain.py's plan rules
+    (halo, layout, residency, blocks per SM, grid, split layout) to refuse a
+    plan that differs, so every plan the Python rules give must launch:
+    `plan` and, in the whole-chain form, every tile `chain_plan` allows,
+    from one short tile to many resident blocks (M = 24576 is the adapt
+    config's last chain at 256 frames), each matching the plain version."""
+    qp, x, gs, lens = _chain_case(cuda, C, k, dil, B, M, C + k + M)
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    p = rb_chain.plan(B, M, C, k, dil, n_sm)
+    plans = [p] + ([q for q in (rb_chain.chain_plan(B, M, C, k, dil, T, n_sm)
+                                for T in rb_chain.CHAIN_TILES) if q and q != p]
+                   if p.form == "chain" else [])
+    assert len(plans) > (p.form == "chain")
+    ref = rb_chain.chain_q8_plain(qp, x, gs, lens)
+    tol = 0.05 * max(1.0, float(ref.abs().max()))
+    for q in plans:
+        before = rb_chain.counter.launches
+        out = rb_chain.chain_q8_cuda(qp, x, gs, lens, q)
+        torch.cuda.synchronize()
+        assert rb_chain.counter.launches - before == q.launches, q
+        assert float((out - ref).abs().max()) <= tol, q
 
 
 @pytest.mark.parametrize("C,up", [(32, 192), (64, 96), (128, 48), (256, 8)])

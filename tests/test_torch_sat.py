@@ -19,6 +19,8 @@ checkpoint atol 1e-4, as tests/test_torch_serving.py holds the engines.
 import json
 import logging
 import os
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -109,7 +111,8 @@ def test_extract_to_file_dispatch(tmp_path, caplog, monkeypatch):
     wav = np.random.RandomState(4).uniform(-0.5, 0.5, 8000).astype(np.float32)
     write_wav(str(tmp_path / "a.wav"), wav, 8000)
     with caplog.at_level(logging.INFO, logger="vits_tpu_torch"):
-        emb = tee.extract_to_file(str(tmp_path / "a.wav"), str(tmp_path / "a.emo"))
+        emb = tee.extract_to_file(str(tmp_path / "a.wav"), str(tmp_path / "a.emo"),
+                                  device="cpu")
     assert any("fallback" in r.getMessage() for r in caplog.records)
     np.testing.assert_array_equal(emb, np.fromfile(str(tmp_path / "a.emo"), np.float32))
     np.testing.assert_array_equal(emb, tee.extract_fallback(load_wav_norm(
@@ -130,7 +133,72 @@ def test_extract_to_file_dispatch(tmp_path, caplog, monkeypatch):
         import onnxruntime  # noqa: F401
     except ImportError:
         with pytest.raises(ImportError, match="onnxruntime"):
-            tee.extract_to_file(str(tmp_path / "a.wav"), str(tmp_path / "b.emo"), str(mdir))
+            tee.extract_to_file(str(tmp_path / "a.wav"), str(tmp_path / "b.emo"), str(mdir),
+                                device="cpu")
+
+
+class _FakeW2V2:
+    """Stands in for transformers' wav2vec2 classes: records the device the
+    model is moved to and the device of the input it is called on."""
+
+    def __init__(self, seen):
+        self.seen = seen
+
+    def from_pretrained(self, path, local_files_only):
+        assert local_files_only
+        return self
+
+    def to(self, device):
+        self.seen["model"] = torch.device(device)
+        return self
+
+    def eval(self):
+        return self
+
+    def __call__(self, wav, sampling_rate=None, return_tensors=None):
+        if return_tensors is not None:  # the feature extractor
+            return types.SimpleNamespace(input_values=torch.from_numpy(wav)[None] * 2)
+        self.seen["input"] = wav.device
+        hidden = wav[..., None].repeat(1, 1, 1024)[:, ::100]
+        return types.SimpleNamespace(last_hidden_state=hidden)
+
+
+def test_extract_emotion_runs_its_model_on_the_device_asked(tmp_path, monkeypatch):
+    """The wav2vec2 model and its input go to `device`; without a card,
+    `device=None` (the default of extract_to_file, of the CLI's `--device`
+    and of SAT's default extractor) raises instead of running on the CPU,
+    the numpy fallback included, and `--device cpu` runs."""
+    seen = {}
+    monkeypatch.setitem(sys.modules, "transformers", types.SimpleNamespace(
+        Wav2Vec2FeatureExtractor=_FakeW2V2(seen), Wav2Vec2Model=_FakeW2V2(seen)))
+    monkeypatch.setattr(tee, "_model_cache", {})
+    wav = np.random.RandomState(6).uniform(-0.5, 0.5, 8000).astype(np.float32)
+    write_wav(str(tmp_path / "a.wav"), wav, 8000)
+    emb = tee.extract_to_file(str(tmp_path / "a.wav"), str(tmp_path / "a.emo"), "w2v2",
+                              device="cpu")
+    assert seen == {"model": torch.device("cpu"), "input": torch.device("cpu")}
+    x = load_wav_norm(str(tmp_path / "a.wav"))[0] * 2
+    np.testing.assert_allclose(emb, np.full(1024, x[::100].mean(), np.float32), rtol=1e-6)
+    np.testing.assert_array_equal(emb, np.fromfile(str(tmp_path / "a.emo"), np.float32))
+
+    monkeypatch.setattr(tee, "_in_hub_cache", lambda model_id: False)
+    if not torch.cuda.is_available():
+        for call in (lambda: tee.extract_to_file(str(tmp_path / "a.wav"),
+                                                 str(tmp_path / "b.emo")),
+                     lambda: tee.extract_to_file(str(tmp_path / "a.wav"),
+                                                 str(tmp_path / "b.emo"), "w2v2"),
+                     lambda: tee.extract_w2v2(wav, 8000, "w2v2"),
+                     lambda: tsat.default_emotion_extractor(str(tmp_path / "a.wav"),
+                                                            str(tmp_path / "b.emo")),
+                     lambda: tee.main(["--wavdir", str(tmp_path), "--outdir",
+                                       str(tmp_path / "out")])):
+            with pytest.raises(RuntimeError, match="device='cpu'"):
+                call()
+        assert not os.path.exists(tmp_path / "b.emo")
+    (tmp_path / "out").mkdir()
+    tee.main(["--wavdir", str(tmp_path), "--outdir", str(tmp_path / "out"), "--device", "cpu"])
+    np.testing.assert_array_equal(np.fromfile(str(tmp_path / "out" / "a.emo"), np.float32),
+                                  tee.extract_fallback(x / 2, 8000))
 
 
 def test_cluster_emotions_equals_jax(tmp_path):
@@ -171,7 +239,8 @@ def test_prepare_speaker_data_equals_jax(tmp_path, monkeypatch):
     _speaker_dir(tmp_path / "data" / "10001", 7)
     hps_t = get_hparams_from_file_dict(tmp_path, TINY_JSON)
     lines_t = tsat.prepare_speaker_data(str(tmp_path / "data" / "10001"),
-                                        str(tmp_path / "work_t"), "10001", hps_t)
+                                        str(tmp_path / "work_t"), "10001", hps_t,
+                                        device="cpu")
     lines_j = jsat.prepare_speaker_data(str(tmp_path / "data" / "10001"),
                                         str(tmp_path / "work_j"), "10001",
                                         jax_get_hparams(str(tmp_path / "cfg.json")),

@@ -175,10 +175,9 @@ class EmoVITS:
         self.aot = None
         if aot:
             from vits_tpu_torch.serve.aot import AOTBundle
-            bundle = AOTBundle(self.res_root_path, self.device)
+            bundle = AOTBundle(self.res_root_path, self.synth.state_dict(), self.device)
             if bundle.text_buckets():
                 self.aot = bundle
-                self._aot_params = dict(self.synth.state_dict())
             else:
                 logger.warning("aot=True but no .pt2 programs in %s; serving from the "
                                "eager path", self.res_root_path)
@@ -297,7 +296,7 @@ class EmoVITS:
         x, x_mask = self._tensor(x, dt), self._tensor(x_mask, dt)
         emo, sid = self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long)
         if aot_tb:
-            return self.aot.call_p1(aot_tb, self._aot_params, x, x_mask, emo, sid)
+            return self.aot.call_p1(aot_tb, x, x_mask, emo, sid)
         return self.synth.infer_p1(x, emo, sid, x_mask=x_mask)
 
     def _alignment(self, w_ceil, x_length, x_pad, y_length, y_pad):
@@ -399,8 +398,7 @@ class EmoVITS:
         if self.quantize and self._q8_observe(attn, m_p, s_p, g, noise, y_mask):
             wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask, dec_q8=self.dec_q8)
         elif aot_fb:
-            wav = self.aot.call_p2(aot_tb, aot_fb, self._aot_params, attn, m_p, s_p, g,
-                                   noise, y_mask)
+            wav = self.aot.call_p2(aot_tb, aot_fb, attn, m_p, s_p, g, noise, y_mask)
         else:
             wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
         wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()

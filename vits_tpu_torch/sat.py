@@ -23,6 +23,7 @@ pretrain/G_0.npz [D_0.npz].
 
 from __future__ import annotations
 
+import functools
 import glob
 import os
 import shutil
@@ -46,26 +47,29 @@ def default_text_frontend(txt_path: str, vec_path: str, text_channels: int):
     vec.astype(np.float32).tofile(vec_path)
 
 
-def default_emotion_extractor(wav_path: str, emo_path: str):
-    """wav -> 1024-d .emo (`toolkits.extract_emotion.extract_to_file`)."""
+def default_emotion_extractor(wav_path: str, emo_path: str, device=None):
+    """wav -> 1024-d .emo (`toolkits.extract_emotion.extract_to_file`, its
+    model on `device`: `cuda` unless "cpu")."""
     from vits_tpu_torch.toolkits.extract_emotion import extract_to_file
-    extract_to_file(wav_path, emo_path)
+    extract_to_file(wav_path, emo_path, device=device)
 
 
 def prepare_speaker_data(spk_dir: str, work_dir: str, spkid: str, hps,
                          text_frontend: Optional[Callable] = None,
                          emotion_extractor: Optional[Callable] = None,
                          denoiser: Optional[Callable] = None,
-                         n_emotion_clusters: int = 3) -> List[str]:
+                         n_emotion_clusters: int = 3, device=None) -> List[str]:
     """One speaker's prep into `work_dir/<spkid>`: each wav with a .txt
-    beside it trimmed (or denoised), embedded and its text vectorized; the
-    bank `<spkid>.emo` clustered from the embeddings. Returns the scp lines
+    beside it trimmed (or denoised), embedded (by default on `device`:
+    `cuda` unless "cpu") and its text vectorized; the bank `<spkid>.emo`
+    clustered from the embeddings. Returns the scp lines
     `vec|wav|emo|spkid`."""
     from vits_tpu_torch.toolkits.cluster_emotion import cluster_emotions
     from vits_tpu_torch.toolkits.trim_sil import trim_silence_file
 
     text_frontend = text_frontend or default_text_frontend
-    emotion_extractor = emotion_extractor or default_emotion_extractor
+    emotion_extractor = emotion_extractor or functools.partial(default_emotion_extractor,
+                                                               device=device)
     out_dir = os.path.join(work_dir, spkid)
     os.makedirs(out_dir, exist_ok=True)
     lines, emo_paths = [], []
@@ -121,7 +125,7 @@ def run_adapt(sat_dir: str, out_dir: str, *, config_path: Optional[str] = None,
         spkid = os.path.basename(spk_dir)
         mapping[spkid] = mapid
         lines = prepare_speaker_data(spk_dir, work_dir, spkid, hps, text_frontend,
-                                     emotion_extractor, denoiser)
+                                     emotion_extractor, denoiser, device=device)
         all_lines += ["|".join(line.split("|")[:3] + [str(mapid)]) for line in lines]
         mapid -= 1
 

@@ -110,20 +110,21 @@ def export_aot(synth: nn.Module, outdir: str, hps, text_buckets: Sequence[int] =
 
 
 class _Graph:
-    """One bucket's CUDA graph: static inputs, the captured outputs, and the
-    weights' addresses it was captured with."""
+    """One bucket's CUDA graph: static inputs and the captured outputs."""
 
-    def __init__(self, graph, inputs, outputs, ptrs):
-        self.graph, self.inputs, self.outputs, self.ptrs = graph, inputs, outputs, ptrs
+    def __init__(self, graph, inputs, outputs):
+        self.graph, self.inputs, self.outputs = graph, inputs, outputs
 
 
 class AOTBundle:
     """The model_p1_t{T}.pt2 / model_p2_t{T}_f{F}.pt2 programs of a
     directory, loaded onto `device` (`cuda` unless "cpu"; the caller
-    resolves it)."""
+    resolves it), run on `params`: the serving model's state dict, bound
+    once (the graphs read the weights where they lie)."""
 
-    def __init__(self, artifact_dir: str, device="cuda"):
+    def __init__(self, artifact_dir: str, params: Dict[str, torch.Tensor], device="cuda"):
         self.dir = artifact_dir
+        self.params = dict(sorted(params.items()))
         self.device = torch.device(device)
         self.p1: Dict[int, nn.Module] = {}
         self.p2: Dict[Tuple[int, int], nn.Module] = {}
@@ -159,23 +160,21 @@ class AOTBundle:
                 return b
         return None
 
-    def call_p1(self, t_bucket: int, params, x, x_mask, emo, sid):
+    def call_p1(self, t_bucket: int, x, x_mask, emo, sid):
         """(m_p, s_p, logw, g) of phase 1 at text bucket t_bucket."""
-        return self._run(("p1", t_bucket), self.p1[t_bucket], params, (x, x_mask, emo, sid))
+        return self._run(("p1", t_bucket), self.p1[t_bucket], (x, x_mask, emo, sid))
 
-    def call_p2(self, t_bucket: int, f_bucket: int, params, attn, m_p, s_p, g, noise, y_mask):
+    def call_p2(self, t_bucket: int, f_bucket: int, attn, m_p, s_p, g, noise, y_mask):
         """The waveform (1, F * hop, 1) of phase 2 at (t_bucket, f_bucket)."""
-        return self._run(("p2", t_bucket, f_bucket), self.p2[(t_bucket, f_bucket)], params,
+        return self._run(("p2", t_bucket, f_bucket), self.p2[(t_bucket, f_bucket)],
                          (attn, m_p, s_p, g, noise, y_mask))
 
-    def _run(self, key, prog: nn.Module, params, args):
-        params = dict(sorted(params.items()))
+    def _run(self, key, prog: nn.Module, args):
         if self.device.type != "cuda":
-            return prog(params, *args)
-        ptrs = tuple(t.data_ptr() for t in params.values())
+            return prog(self.params, *args)
         entry = self.graphs.get(key)
-        if entry is None or entry.ptrs != ptrs:
-            entry = self.graphs[key] = self._capture(key, prog, params, args, ptrs)
+        if entry is None:
+            entry = self.graphs[key] = self._capture(key, prog, args)
         for buf, a in zip(entry.inputs, args):
             buf.copy_(a)
         entry.graph.replay()
@@ -183,7 +182,7 @@ class AOTBundle:
             return entry.outputs.clone()
         return tuple(o.clone() for o in entry.outputs)
 
-    def _capture(self, key, prog, params, args, ptrs) -> _Graph:
+    def _capture(self, key, prog, args) -> _Graph:
         """Capture `prog` at this bucket: two warm-up calls on a side
         stream, then the capture into the shared pool."""
         t0 = time.perf_counter()
@@ -194,11 +193,11 @@ class AOTBundle:
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(2):
-                prog(params, *inputs)
+                prog(self.params, *inputs)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, pool=self._pool):
-            outputs = prog(params, *inputs)
+            outputs = prog(self.params, *inputs)
         torch.cuda.synchronize(self.device)
         self.capture_s[key] = time.perf_counter() - t0
-        return _Graph(graph, inputs, outputs, ptrs)
+        return _Graph(graph, inputs, outputs)

@@ -11,9 +11,11 @@ default model serves where it is in the local hub cache, and otherwise the
 deterministic spectral-statistics fallback is taken, and logged: band log
 energies and their modulation statistics tiled to 1024 dims, for pipeline
 plumbing only. The cache is looked up before `transformers` is imported
-(an import that can take tens of seconds).
+(an import that can take tens of seconds). The wav2vec2 model runs on
+`device` (`cuda` unless "cpu"); the ONNX session and the fallback run on
+the host.
 
-    python -m vits_tpu_torch.toolkits.extract_emotion --wavdir <dir> [--outdir <dir>] [--model <path>]
+    python -m vits_tpu_torch.toolkits.extract_emotion --wavdir <dir> [--outdir <dir>] [--model <path>] [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -25,24 +27,26 @@ from typing import Optional
 
 import numpy as np
 
+from vits_tpu_torch.device import resolve_device
 from vits_tpu_torch.utils.summary import logger
 
 DEFAULT_MODEL = "audeering/wav2vec2-large-robust-12-ft-emotion-msp-dim"
 _model_cache = {}
 
 
-def _load_w2v2(model_path: str):
-    if model_path in _model_cache:
-        return _model_cache[model_path]
+def _load_w2v2(model_path: str, device):
+    key = (model_path, str(device))
+    if key in _model_cache:
+        return _model_cache[key]
     try:
         from transformers import Wav2Vec2FeatureExtractor, Wav2Vec2Model
     except ImportError as e:
         raise ImportError("the wav2vec2 emotion model needs the `transformers` package, "
                           "which is not installed") from e
     fe = Wav2Vec2FeatureExtractor.from_pretrained(model_path, local_files_only=True)
-    model = Wav2Vec2Model.from_pretrained(model_path, local_files_only=True).eval()
-    _model_cache[model_path] = (fe, model)
-    return _model_cache[model_path]
+    model = Wav2Vec2Model.from_pretrained(model_path, local_files_only=True).to(device).eval()
+    _model_cache[key] = (fe, model)
+    return _model_cache[key]
 
 
 def _in_hub_cache(model_id: str) -> bool:
@@ -54,14 +58,17 @@ def _in_hub_cache(model_id: str) -> bool:
     return isinstance(try_to_load_from_cache(model_id, "config.json"), str)
 
 
-def extract_w2v2(wav: np.ndarray, sr: int, model_path: str = DEFAULT_MODEL) -> np.ndarray:
-    """Mean-pooled wav2vec2 hidden states -> (1024,) float32."""
+def extract_w2v2(wav: np.ndarray, sr: int, model_path: str = DEFAULT_MODEL,
+                 device=None) -> np.ndarray:
+    """Mean-pooled wav2vec2 hidden states -> (1024,) float32, the model on
+    `device` (`cuda` unless "cpu")."""
     import torch
-    fe, model = _load_w2v2(model_path)
+    dev = resolve_device(device)
+    fe, model = _load_w2v2(model_path, dev)
     inputs = fe(wav, sampling_rate=sr, return_tensors="pt")
     with torch.no_grad():
-        emb = model(inputs.input_values).last_hidden_state.mean(dim=1)[0]
-    return emb.numpy().astype(np.float32)
+        emb = model(inputs.input_values.to(dev)).last_hidden_state.mean(dim=1)[0]
+    return emb.float().cpu().numpy()
 
 
 def _is_onnx_model(model_path: Optional[str]) -> bool:
@@ -125,20 +132,21 @@ def extract_fallback(wav: np.ndarray, sr: int) -> np.ndarray:
     return v.astype(np.float32)
 
 
-def extract_to_file(wav_path: str, emo_path: str,
-                    model_path: Optional[str] = None) -> np.ndarray:
+def extract_to_file(wav_path: str, emo_path: str, model_path: Optional[str] = None,
+                    device=None) -> np.ndarray:
     """Embed one wav into `emo_path`: an ONNX `model_path` through
-    onnxruntime, another `model_path` through transformers, none through the
-    default model where it is in the local hub cache, else the fallback
-    (logged)."""
+    onnxruntime, another `model_path` through transformers on `device`
+    (`cuda` unless "cpu"), none through the default model there where it is
+    in the local hub cache, else the fallback (logged)."""
     from vits_tpu_torch.utils.audio import load_wav_norm
+    dev = resolve_device(device)
     wav, sr = load_wav_norm(wav_path)
     if _is_onnx_model(model_path):
         emb = extract_onnx(wav, sr, model_path)
     elif model_path:
-        emb = extract_w2v2(wav, sr, model_path)
+        emb = extract_w2v2(wav, sr, model_path, dev)
     elif _in_hub_cache(DEFAULT_MODEL):
-        emb = extract_w2v2(wav, sr, DEFAULT_MODEL)
+        emb = extract_w2v2(wav, sr, DEFAULT_MODEL, dev)
     else:
         logger.info("emotion model %s is not in the local cache; using the spectral-"
                     "statistics fallback for %s", DEFAULT_MODEL, wav_path)
@@ -154,12 +162,15 @@ def main(argv=None):
     parser.add_argument("--model", type=str, default=None,
                         help="local wav2vec2 emotion model (transformers), or a .onnx file / "
                              "audonnx model dir (onnxruntime)")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="where the wav2vec2 model runs: cuda (default) or cpu")
     args = parser.parse_args(argv)
+    dev = resolve_device(args.device)
     wavs = sorted(glob.glob(os.path.join(args.wavdir, "**", "*.wav"), recursive=True))
     for w in wavs:
         out = (os.path.join(args.outdir, os.path.basename(w)[:-4] + ".emo")
                if args.outdir else w[:-4] + ".emo")
-        extract_to_file(w, out, args.model)
+        extract_to_file(w, out, args.model, dev)
         print(out)
 
 
