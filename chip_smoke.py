@@ -136,14 +136,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      ddp      - data-parallel training (parallel/dist.py): 2 ranks started
                 by `python -m torch.distributed.run --nproc_per_node 2
                 chip_smoke.py --ddp-rank job.json` (NCCL where there is a card
-                a rank, else gloo with both ranks on cuda:0). The 2-rank fp32
-                step at 2 x 8 (T_x 96, 400 frames, rank 0's utterances long,
-                rank 1's short) against one process on the 16 together, same
-                weights and noise, without cuDNN and with it: summed losses
-                within 1e-3, MAS paths equal, every summed gradient within
-                1e-5 + 1e-3 of its largest magnitude without cuDNN and 10
-                times that with it (cuDNN's backward algorithms differ at B 8
-                and 16). Then the training CLI's calls on each rank
+                a rank, else gloo with both ranks on cuda:0). The 2-rank step
+                at 2 x 8 (T_x 96, 400 frames, rank 0's utterances long, rank
+                1's short) against the float64 step of one process on the 16
+                together (models, inputs and `TrainStepConfig.compute_dtype`
+                in float64), same weights and noise: in float64, with cuDNN
+                and without, summed losses and every summed gradient within
+                1e-9 relative, MAS paths equal; in fp32 without cuDNN, summed
+                losses within 1e-3, MAS paths equal, every summed gradient
+                within 1e-5 + 1e-3 of its largest magnitude.
+                Then the training CLI's calls on each rank
                 (base config, full width, -d, batch 32 a rank) for 4 steps in
                 fp32 and 4 in the configured bf16 over a synthetic corpus of
                 one bucket: the ranks' parameter sha256 equal, rank 0 alone
@@ -152,13 +154,33 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 around the step's three reductions), global audio-s/s and
                 peak memory per rank. Then the bf16 run's G/D/P_4.npz
                 resumed by a 1-process loop.run for one step;
- 10. card     - print the card's name and power limit.
+ 10. onnx     - the ONNX export at the base config's full width: `python -m
+                vits_tpu_torch.export --convert 2 --device cuda` as a
+                subprocess on a seeded training checkpoint (the deployable
+                checkpoint.npz, .pt2 programs at one bucket pair, and
+                model_p1.onnx / model_p2.onnx traced at 48 x 384): its seconds
+                by part (trace, decompositions, conversion, write); both files
+                checked structurally (sizes, node counts, the op histogram);
+                model_p1.onnx evaluated by the port's runtime on the card at
+                text lengths 48, 17 and 160 and model_p2.onnx at (48, 384),
+                each against the eager infer_p1 / infer_p2 in fp32 with TF32
+                off (atol 2e-4, rtol 2e-3), the ms of each;
+     options  - the base config with resblock "1" and act_func_d "swish" at
+                full width: one two-phase float request in fp32 and in bf16 in
+                turns with the ResBlock2 model of [onnx] (latency of each), a
+                decode on the card against the CPU and bf16 against fp32 on the
+                same latent, quantize_decoder refused; 1 + 3 fp32 training
+                steps with -d (B 16, T_x 96, 400 frames), K2 once a step, every
+                launch bit-exact against the plain search, the step ms; its
+                ONNX export at (32, 128) checked and evaluated as [onnx]'s;
+ 11. card     - print the card's name and power limit.
 Each phase prints the seconds it took. K1's launches in the kernels line are
 those of the serving, fused, server and sat phases, each read with the
 counter set to 0 just before the path runs and read just after; its bf16
 form's those of the bf16 phase, and K2's those of both precisions' training
 steps of both variants, of both runs and their resumes, of both ranks' runs
-and the resume in the ddp phase, and of the adapt run.
+and the resume in the ddp phase, of the adapt run and of the options
+model's training steps.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -995,13 +1017,23 @@ DDP_STEPS = 4            # each run's steps: one batch a rank an epoch, DDP_STEP
 DDP_SECONDS = (3.7, 4.7)  # 308-391 frames: every utterance in the (300, 400] bucket
 DDP_CMP_B = 8            # the step comparison: DDP_RANKS x 8 against one process on 16
 DDP_TIMEOUT = 600        # the torchrun launch's seconds
-# the 2-rank step's gradients against one process with cuDNN, in units of the
-# plain check's tolerance (1e-5 + 1e-3 max|g|): cuDNN picks other algorithms
-# for the decoder's backward at B 8 than at B 16, and 57 of 810 tensors moved
-# by up to 3.81 of it (the worst a weight-norm gain's in the last resblock),
-# where the same comparison without cuDNN kept every tensor within 0.21 of it
-# (this phase's two lines, on an NVIDIA H100 80GB HBM3 at 700 W)
-DDP_CUDNN_GRAD = 10.0
+# The step comparison's reference is the 1-process step on the global batch in
+# float64 (models, step and inputs; MAS on neg_cent rounded to f32, as the
+# kernel takes it), with cuDNN and without. The N-rank float64 step must
+# take it within 1e-9 relative, with cuDNN and without: every summed loss,
+# and every summed gradient within 1e-9 of its largest magnitude; float64
+# leaves the summation order ~1e-16, so a rank split that changed the
+# function shows far above it. The N-rank float32 step without cuDNN must
+# take it within the float32 tolerance: the summed losses within LOSS_RTOL,
+# the paths equal, every summed gradient within 1e-5 + 1e-3 of its largest
+# magnitude. A float32 1-process step is no reference: at 4 ranks it stood
+# 2.672 of that tolerance from float64 where the ranks stood 0.484, and with
+# cuDNN both float32 sides stood 2.2-3.8 from it (its backward algorithms),
+# so float32 with cuDNN is not compared (4 and 1 x NVIDIA H100 80GB HBM3,
+# 700 W).
+DDP_F64_RTOL = 1e-9
+DDP_REF_RUNS = (("fp64", False), ("fp64", True))  # (precision, cuDNN): one process
+DDP_CMP_RUNS = (("fp32", False),) + DDP_REF_RUNS  # the ranks'
 
 
 def _ddp_compare_lengths(world: int):
@@ -1041,14 +1073,16 @@ def _ddp_compare_inputs(hps, world: int):
     return {k: torch.from_numpy(v) for k, v in b.items()}, noise
 
 
-def _ddp_compare_steps(dev, world, group, rank):
-    """The base config's fp32 mel step at full width from the seeded weights
+def _ddp_compare_steps(dev, world, group, rank, runs):
+    """The base config's mel step at full width from the seeded weights
     (dropout off: eval mode, so both sides run one function) on the
     comparison's batch and noise for `world` ranks: rank `rank`'s part with
-    `group`, or all of it with None; once with cuDNN and once without
-    (PyTorch's own convolutions), each from a copy of the same state.
-    Returns {cudnn: (metrics, {model: {name: gradient}}, K2's path)}, the
-    losses summed over the ranks."""
+    `group`, or all of it with None; each of `runs`, (precision, cuDNN),
+    from a copy of the same state: fp32, or fp64 (the models, the inputs and
+    `TrainStepConfig.compute_dtype`), with cuDNN or without (PyTorch's own
+    convolutions). Returns {(precision, cudnn): (metrics, {model: {name:
+    gradient}}, K2's path)}, the losses summed over the ranks."""
+    import dataclasses
     from vits_tpu_torch.config import default_config_path, get_hparams_from_file
     from vits_tpu_torch.ops import mas
     from vits_tpu_torch.parallel import dist
@@ -1066,16 +1100,25 @@ def _ddp_compare_steps(dev, world, group, rank):
     parts = dist.world_size(group)
     batch, noise = ({k: v.chunk(parts)[rank].to(dev) for k, v in d.items()}
                     for d in (batch, noise))
-    step = make_train_step(TrainStepConfig.from_hps(hps, torch.float32), group)
+    cfg = TrainStepConfig.from_hps(hps, torch.float32)
+    steps = {"fp32": make_train_step(cfg, group),
+             "fp64": make_train_step(dataclasses.replace(cfg, compute_dtype=torch.float64),
+                                     group)}
     lr = hps.train.learning_rate
     out = {}
-    for cudnn in (True, False):
+    for prec, cudnn in runs:
         state = copy.deepcopy(state0)
+        b, n = batch, noise
+        if prec == "fp64":
+            for key in ("gen", "disc"):
+                state[key].double()
+            b, n = ({k: v.double() if v.is_floating_point() else v for k, v in d.items()}
+                    for d in (batch, noise))
         calls = []
         kernel = _recording_k2(calls)
         try:
             with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-                _, m = step(state, batch, noise, lr, lr, 0.01)
+                _, m = steps[prec](state, b, n, lr, lr, 0.01)
         finally:
             mas.maximum_path_cuda = kernel
         shares = dist.allreduce_metrics({k: v for k, v in m.items() if k.startswith("loss")},
@@ -1083,45 +1126,63 @@ def _ddp_compare_steps(dev, world, group, rank):
         grads = {key: {n: p.grad.detach().cpu() for n, p in state[key].named_parameters()}
                  for key in ("gen", "disc")}
         torch.cuda.synchronize()
-        out[cudnn] = ({k: float(v) for k, v in {**m, **shares}.items() if v.ndim == 0},
-                      grads, calls[0][3])
-        del state
+        out[(prec, cudnn)] = ({k: float(v) for k, v in {**m, **shares}.items() if v.ndim == 0},
+                              grads, calls[0][3])
+        del state, b, n
+        torch.cuda.empty_cache()
+    return out
+
+
+def _grad_ratios(grads, ref_g, f32_tol: bool) -> dict:
+    """{model.name: max|g - ref| over the tolerance unit}: 1e-5 + 1e-3
+    max|ref| (the float32 check's), or max|ref| (the float64 check's; a
+    zero gradient must then be matched exactly)."""
+    out = {}
+    for key, named in grads.items():
+        for name, g in named.items():
+            ref = ref_g[key][name].double()
+            diff = float((g.double() - ref).abs().max())
+            unit = (1e-5 + 1e-3 * float(ref.abs().max())) if f32_tol else float(ref.abs().max())
+            out[f"{key}.{name}"] = diff / unit if unit else (0.0 if diff == 0 else float("inf"))
     return out
 
 
 def _ddp_compare_rank(info, ref_path) -> dict:
-    """This rank's side of the comparison: the 2-rank step against the
-    1-process one saved at `ref_path`, with cuDNN and without: the summed
-    losses within LOSS_RTOL, this rank's MAS path equal to its half of the
-    1-process path, and every summed gradient within its tolerance, 1e-5 +
-    1e-3 of the tensor's largest magnitude without cuDNN, DDP_CUDNN_GRAD
-    times that with it (cuDNN picks other algorithms for the decoder's
-    backward at B 8 than at 16)."""
-    runs = _ddp_compare_steps(info.device, info.world, info.group, info.rank)
+    """This rank's side of the comparison: each N-rank step of DDP_CMP_RUNS
+    against the 1-process fp64 step saved at `ref_path` with cuDNN as it
+    ran: the summed losses within LOSS_RTOL (fp32) or DDP_F64_RTOL (fp64)
+    relative, this rank's MAS path equal to its part of the 1-process path,
+    and every summed gradient within 1e-5 + 1e-3 (fp32) or DDP_F64_RTOL
+    (fp64) of the reference tensor's largest magnitude. Every run is
+    compared before a miss raises, and the error states them all."""
+    runs = _ddp_compare_steps(info.device, info.world, info.group, info.rank, DDP_CMP_RUNS)
     ref = torch.load(ref_path)
-    res = {}
-    for cudnn, (metrics, grads, path) in runs.items():
-        ref_m, ref_g, ref_path_all = ref[cudnn]
-        rel = {k: abs(metrics[k] - v) / max(abs(v), LOSS_ATOL / LOSS_RTOL)
+    res, misses = {}, []
+    for (prec, cudnn), (metrics, grads, path) in runs.items():
+        ref_m, ref_g, ref_path_all = ref[("fp64", cudnn)]
+        f32 = prec == "fp32"
+        rtol, atol = (LOSS_RTOL, LOSS_ATOL) if f32 else (DDP_F64_RTOL, 0.0)
+        rel = {k: abs(metrics[k] - v) / max(abs(v), atol / rtol)
                for k, v in ref_m.items() if k in LOSS_KEYS["mel"]}
-        bad = [k for k, r in rel.items() if r > LOSS_RTOL]
+        bad = [k for k, r in rel.items() if r > rtol]
         differ = int((path != ref_path_all.chunk(info.world)[info.rank]).sum())
-        ratios = {f"{key}.{name}": float((g - ref_g[key][name]).abs().max())
-                  / (1e-5 + 1e-3 * float(ref_g[key][name].abs().max()))
-                  for key, named in grads.items() for name, g in named.items()}
+        ratios = _grad_ratios(grads, ref_g, f32)
         worst = max(ratios, key=ratios.get)
-        bound = DDP_CUDNN_GRAD if cudnn else 1.0
+        bound = 1.0 if f32 else DDP_F64_RTOL
+        name = prec + ("_cudnn" if cudnn else "")
         if bad or differ or ratios[worst] > bound:
-            raise RuntimeError(
-                f"rank {info.rank}: the {info.world}-rank step differs from one process "
-                f"(cuDNN {'on' if cudnn else 'off'}): losses {bad} "
-                f"({ {k: rel[k] for k in bad} }), {differ} path cells, worst gradient {worst} "
-                f"at {ratios[worst]:.3f} of its tolerance (bound {bound})")
+            misses.append(f"{name}: losses {bad} ({ {k: rel[k] for k in bad} }), {differ} path "
+                          f"cells, worst gradient {worst} at {ratios[worst]:.3e} of its "
+                          f"tolerance (bound {bound})")
         k = max(rel, key=rel.get)
-        res["cudnn" if cudnn else "plain"] = {
-            "loss_rel": rel[k], "loss_worst": k, "path_cells": int(path.sum()),
-            "grad_ratio": ratios[worst], "grad_worst": worst, "grads": len(ratios),
-            "over_1": sum(r > 1.0 for r in ratios.values())}
+        res[name] = {"loss_rel": rel[k], "loss_worst": k, "path_cells": int(path.sum()),
+                     "grad_ratio": ratios[worst], "grad_worst": worst, "grads": len(ratios),
+                     "over_1": sum(r > 1.0 for r in ratios.values())}
+    if misses:
+        summary = "; ".join(f"{n}: worst gradient {e['grad_worst']} at {e['grad_ratio']:.3e}"
+                            for n, e in res.items())
+        raise RuntimeError(f"rank {info.rank}: the {info.world}-rank step differs from the "
+                           f"1-process fp64 step: {' | '.join(misses)}. All runs: {summary}")
     return res
 
 
@@ -1222,11 +1283,10 @@ def phase_ddp(dev, workdir):
     """Data-parallel training on the card (`parallel/dist.py`): DDP_RANKS
     ranks by `python -m torch.distributed.run --nproc_per_node DDP_RANKS
     chip_smoke.py --ddp-rank` (`ddp_rank`), NCCL where the host has a card a
-    rank, else gloo with the ranks sharing cuda:0. First the N-rank fp32 step
-    at N x DDP_CMP_B against the 1-process step on the concatenated batch
-    (same weights and noise parts, unequal lengths across ranks), without
-    cuDNN and with it; then the
-    base config at full width with -d, batch 32 a rank, for DDP_STEPS steps
+    rank, else gloo with the ranks sharing cuda:0. First the N-rank steps
+    of DDP_CMP_RUNS at N x DDP_CMP_B against the 1-process fp64 step on the
+    concatenated batch (same weights and noise parts, unequal lengths across
+    ranks; `_ddp_compare_rank`); then the base config at full width with -d, batch 32 a rank, for DDP_STEPS steps
     in fp32 and then in the configured bf16 over a synthetic corpus of one
     bucket: each rank's digest equal, rank 0 alone saving and evaluating,
     every K2 launch bit-exact, step ms, reduction ms, audio-s/s and peak
@@ -1260,7 +1320,7 @@ def phase_ddp(dev, workdir):
             json.dump(c, f)
         runs.append(["-m", name, "-d", "-c", path])
     ref_path = os.path.join(workdir, "reference.pt")
-    torch.save(_ddp_compare_steps(dev, DDP_RANKS, None, 0), ref_path)
+    torch.save(_ddp_compare_steps(dev, DDP_RANKS, None, 0, DDP_REF_RUNS), ref_path)
     torch.cuda.empty_cache()
     job = os.path.join(workdir, "job.json")
     with open(job, "w") as f:
@@ -1292,16 +1352,18 @@ def phase_ddp(dev, workdir):
     xl, yl = (v.reshape(DDP_RANKS, -1) for v in _ddp_compare_lengths(DDP_RANKS))
     lengths = "; ".join(f"rank {r}'s text {xl[r].min()}-{xl[r].max()}, {yl[r].min()}-"
                         f"{yl[r].max()} frames" for r in range(DDP_RANKS))
-    for name, bound in (("plain", 1.0), ("cudnn", DDP_CUDNN_GRAD)):
-        c0 = ranks[0]["compare"][name]
-        log(f"[ddp] fp32 step of {DDP_RANKS} x {DDP_CMP_B} (T_x {TRAIN_TX}, {TRAIN_TY} frames; "
-            f"{lengths}) against one process on the {DDP_RANKS * DDP_CMP_B} together, same "
-            f"weights and noise, {'with cuDNN' if name == 'cudnn' else 'without cuDNN'}: "
+    for prec, cudnn in DDP_CMP_RUNS:
+        name = prec + ("_cudnn" if cudnn else "")
+        c0, f32 = ranks[0]["compare"][name], prec == "fp32"
+        log(f"[ddp] {prec} step of {DDP_RANKS} x {DDP_CMP_B} (T_x {TRAIN_TX}, {TRAIN_TY} frames; "
+            f"{lengths}) {'with cuDNN' if cudnn else 'without cuDNN'} against the fp64 step of "
+            f"one process on the {DDP_RANKS * DDP_CMP_B} together, same weights and noise: "
             f"losses within {c0['loss_rel']:.2e} relative ({c0['loss_worst']}; tol "
-            f"{LOSS_RTOL:.0e}), MAS paths equal on every rank "
+            f"{LOSS_RTOL if f32 else DDP_F64_RTOL:.0e}), MAS paths equal on every rank "
             f"({[r['compare'][name]['path_cells'] for r in ranks]} cells), {c0['grads']} summed "
-            f"gradients within {c0['grad_ratio']:.3f} of 1e-5 + 1e-3 max|g| (worst "
-            f"{c0['grad_worst']}; {c0['over_1']} tensors over 1; bound {bound})")
+            f"gradients within {c0['grad_ratio']:.3e} of "
+            f"{'1e-5 + 1e-3 max|g| (bound 1)' if f32 else f'max|g| (bound {DDP_F64_RTOL:.0e})'}"
+            f" (worst {c0['grad_worst']})")
 
     launches, err = 0, 0.0
     scale = ("not a scaling figure: the ranks share one card over gloo"
@@ -1367,14 +1429,17 @@ def phase_ddp(dev, workdir):
     return launches + resumed, err
 
 
-def _write_checkpoint(dirpath, hps_dict, dev_gen_seed):
+def _write_checkpoint(dirpath, hps_dict, dev_gen_seed, train: bool = False):
+    """A seeded random checkpoint.npz and its config.json in `dirpath`: the
+    serving tree (weight norm folded, no posterior encoder), or with `train`
+    the training tree a trainer's G_*.npz holds."""
     from vits_tpu_torch.config import HParams
     from vits_tpu_torch.convert import params_to_jax
     from vits_tpu_torch.models.synthesizer import Synthesizer
     from vits_tpu_torch.nn.core import init_weights
     from vits_tpu_torch.utils.checkpoint import save_checkpoint
 
-    synth = Synthesizer.from_hps(HParams(**hps_dict))
+    synth = Synthesizer.from_hps(HParams(**hps_dict), train=train)
     init_weights(synth, torch.Generator().manual_seed(dev_gen_seed))
     with open(os.path.join(dirpath, "config.json"), "w") as f:
         json.dump(hps_dict, f)
@@ -2421,6 +2486,325 @@ def phase_sat(dev, workdir):
     return k1_launches, k2_launches, mas_err, k1_err
 
 
+ONNX_TX, ONNX_TY = 48, 384     # [onnx]: the export CLI's traced (t_x, t_y), its defaults
+ONNX_LENGTHS = (48, 17, 160)   # ... p1 evaluated at the traced text length and two others
+ONNX_ATOL, ONNX_RTOL = 2e-4, 2e-3  # tests/test_onnx.py's tolerance for the JAX package's files
+OPT_ONNX = (32, 128)           # [options]: its export at a smaller (t_x, t_y)
+OPT_LENGTHS = (32, 11)
+OPT_STEPS = 3                  # [options]: fp32 -d steps timed after one warm-up
+OPT_ROUNDS = 3                 # ... request rounds in turns over its four engines
+OPT_FRAMES = 600               # ... the requests' frame count
+
+
+def _runtime_ms(data, inputs, dev):
+    """The port's ONNX runtime on the card: (outputs on the host, ms of the
+    first call (parse and upload included), ms of a second)."""
+    from vits_tpu_torch.onnx import runtime
+    ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = runtime.run_model(data, inputs, dev)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {k: v.cpu().numpy() for k, v in out.items()}, ms[0], ms[1]
+
+
+def _onnx_err(out, ref, what) -> float:
+    """The largest |out - ref| over the outputs; raises where one lies
+    outside atol ONNX_ATOL + rtol ONNX_RTOL or has another shape."""
+    worst = 0.0
+    for k, r in ref.items():
+        o = out[k]
+        if o.shape != r.shape or not np.all(np.abs(o - r) <= ONNX_ATOL + ONNX_RTOL * np.abs(r)):
+            raise RuntimeError(f"{what}: {k} {o.shape} against {r.shape}, max_abs_err "
+                               f"{float(np.abs(o - r).max()) if o.shape == r.shape else 'n/a'}")
+        worst = max(worst, float(np.abs(o - r).max()))
+    return worst
+
+
+def onnx_check_and_eval(dev, synth, paths, lengths, t_x, t_y, tag):
+    """Both files checked structurally (`python -m vits_tpu_torch.onnx`'s
+    check), then evaluated by the port's runtime on the card: p1 at each
+    text length of `lengths`, p2 at (t_x, t_y) on p1's eager outputs,
+    against the eager `infer_p1` / `infer_p2` of `synth` in fp32 (TF32 off).
+    Returns {file: (MB, nodes)} and [(what, first ms, ms, eager ms, err)]."""
+    from vits_tpu_torch.onnx import proto
+    from vits_tpu_torch.onnx.__main__ import check_model
+    from vits_tpu_torch.ops.seq import infer_path
+    files, sizes = {}, {}
+    for name, path in zip(("p1", "p2"), paths):
+        with open(path, "rb") as f:
+            files[name] = f.read()
+        m = proto.parse_model(files[name])
+        problems = check_model(m)
+        if problems or m["opset"] != 17:
+            raise RuntimeError(f"{tag} {path}: opset {m['opset']}, problems {problems[:5]}")
+        ops = {}
+        for n in m["graph"]["node"]:
+            ops[n["op_type"]] = ops.get(n["op_type"], 0) + 1
+        sizes[name] = (len(files[name]) / 1e6, len(m["graph"]["node"]))
+        log(f"{tag} {os.path.basename(path)}: {sizes[name][0]:.2f} MB, {sizes[name][1]} nodes, "
+            f"{len(m['graph']['initializer'])} initializers, opset {m['opset']}, structure OK; "
+            f"inputs {[(vi['name'], vi['shape']) for vi in m['graph']['input']]}; ops "
+            + ", ".join(f"{k} {v}" for k, v in sorted(ops.items(), key=lambda kv: -kv[1])))
+    rng = np.random.RandomState(SEED + 40)
+    tc, n_spk = synth.enc_p.emb["0"].in_features, synth.emb_g.weight.shape[0]
+    evals, p1_at = [], {}
+    for t in lengths:
+        inp = {"input_text": rng.randn(1, t, tc).astype(np.float32),
+               "input_emo": rng.randn(1, 1024).astype(np.float32),
+               "input_g": np.array([rng.randint(n_spk)], np.int64)}
+        out, first, ms = _runtime_ms(files["p1"], inp, dev)
+        args = [torch.from_numpy(v).to(dev) for v in inp.values()]
+        with torch.no_grad():
+            (m_p, s_p, logw, g), eager = _timed_call(synth.infer_p1, *args)
+        p1_at[t] = (m_p, s_p, g)
+        ref = {"output_m_p": m_p.transpose(1, 2), "output_s_p": s_p.transpose(1, 2),
+               "output_logw": logw.transpose(1, 2), "output_g": g}
+        err = _onnx_err(out, {k: v.cpu().numpy() for k, v in ref.items()}, f"{tag} p1 T={t}")
+        evals.append((f"p1 at text length {t}{' (traced)' if t == t_x else ''}", first, ms,
+                      eager, err))
+    m_p, s_p, g = p1_at[t_x] if t_x in p1_at else p1_at[lengths[0]]
+    dur = torch.full((1, t_x), float(t_y // t_x), device=dev)
+    dur[0, :t_y % t_x] += 1
+    attn = infer_path(dur, t_y)
+    noise = torch.from_numpy(0.667 * rng.randn(1, t_y, synth.inter_channels)
+                             .astype(np.float32)).to(dev)
+    inp = {"input_attn": attn.cpu().numpy(), "input_m_p": m_p.transpose(1, 2).cpu().numpy(),
+           "input_s_p": s_p.transpose(1, 2).cpu().numpy(), "input_g": g.cpu().numpy(),
+           "input_noise": noise.transpose(1, 2).cpu().numpy()}
+    out, first, ms = _runtime_ms(files["p2"], inp, dev)
+    with torch.no_grad():
+        wav, eager = _timed_call(synth.infer_p2, attn, m_p, s_p, g, noise)
+    err = _onnx_err(out, {"output_wav": wav.transpose(1, 2).cpu().numpy()}, f"{tag} p2")
+    evals.append((f"p2 at ({t_x}, {t_y})", first, ms, eager, err))
+    for what, first, ms, eager, err in evals:
+        log(f"{tag} {what}: the port's runtime on the card {ms:.2f} ms (first call, parse "
+            f"and upload included, {first:.2f} ms), eager {eager:.2f} ms; max_abs_err "
+            f"{err:.3e} (atol {ONNX_ATOL}, rtol {ONNX_RTOL})")
+    return sizes, evals
+
+
+_EXPORT_LINE = (r"part(\d) to onnx: \[(.*?)\] \(trace ([\d.]+) s, decompositions ([\d.]+) s, "
+                r"conversion ([\d.]+) s, write ([\d.]+) s\)")
+
+
+def phase_onnx(dev, workdir):
+    """The ONNX export at configs/base.json's full width: `python -m
+    vits_tpu_torch.export --convert 2` as a subprocess on a seeded training
+    checkpoint (its deployable checkpoint.npz, the .pt2 programs at one text
+    and one frame bucket, and model_p1.onnx / model_p2.onnx traced at
+    ONNX_TX x ONNX_TY), its seconds by part, then `onnx_check_and_eval`: p1
+    at ONNX_LENGTHS and p2 against the eager phases of the exported
+    checkpoint on the card. Returns that checkpoint, the sizes and the
+    evaluations."""
+    import re
+
+    from vits_tpu_torch.config import get_hparams_from_file
+    from vits_tpu_torch.convert import params_from_jax
+    from vits_tpu_torch.models.synthesizer import Synthesizer
+    from vits_tpu_torch.utils.checkpoint import read_checkpoint
+
+    with open(os.path.join(ROOT, "configs", "base.json")) as f:
+        cfg = json.load(f)
+    src, out = os.path.join(workdir, "onnx_src"), os.path.join(workdir, "onnx_out")
+    os.makedirs(src)
+    ckpt = _write_checkpoint(src, cfg, SEED + 30, train=True)
+    start = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vits_tpu_torch.export", "-o", out, "--checkpoint", ckpt,
+         "--convert", "2", "--text-buckets", "64", "--frame-buckets", "256",
+         "--onnx-tx", str(ONNX_TX), "--onnx-ty", str(ONNX_TY), "--device", "cuda"],
+        env={**os.environ, "PYTHONPATH": ROOT}, capture_output=True, text=True, timeout=600)
+    export_s = time.perf_counter() - start
+    parts = re.findall(_EXPORT_LINE, r.stdout)
+    paths = [os.path.join(out, f"model_p{i}.onnx") for i in (1, 2)]
+    if r.returncode != 0 or len(parts) != 2 or not all(map(os.path.exists, paths)):
+        raise RuntimeError(f"the export exited {r.returncode}:\n{r.stdout[-3000:]}\n"
+                           f"{r.stderr[-3000:]}")
+    pt2 = sorted(f for f in os.listdir(out) if f.endswith(".pt2"))
+    log(f"[onnx] `python -m vits_tpu_torch.export --convert 2 --device cuda` on the base "
+        f"config's seeded training checkpoint: exit 0 in {export_s:.1f} s (the process, the "
+        f"load and the .pt2 programs {pt2} included); "
+        + "; ".join(f"model_p{p}.onnx: trace {float(a):.2f} s, decompositions {float(b):.2f} "
+                    f"s, conversion {float(c):.2f} s, write {float(w):.2f} s"
+                    for p, _, a, b, c, w in parts))
+    ckpt = os.path.join(out, "checkpoint.npz")
+    hps = get_hparams_from_file(os.path.join(out, "config.json"))
+    synth = params_from_jax(read_checkpoint(ckpt)[0]["model"],
+                            Synthesizer.from_hps(hps)).to(dev).eval()
+    sizes, evals = onnx_check_and_eval(dev, synth, paths, ONNX_LENGTHS, ONNX_TX, ONNX_TY,
+                                       "[onnx]")
+    del synth
+    torch.cuda.empty_cache()
+    return ckpt, sizes, evals
+
+
+def _rate_for(model, spk, text, emo, frames, dev) -> float:
+    """The duration rate that gives `model` about `frames` frames for the
+    request (sum(ceil(w * rate)) lies in [frames, frames + tokens])."""
+    with torch.inference_mode():
+        _, _, logw, _ = model.synth.infer_p1(
+            torch.from_numpy(text[None]).to(dev, model.compute_dtype),
+            torch.from_numpy(emo[None]).to(dev, model.compute_dtype),
+            torch.tensor([spk], device=dev))
+    return frames / float(torch.exp(logw.float()).sum())
+
+
+def phase_options(dev, workdir, rb2_ckpt):
+    """The model options at configs/base.json's full width: `resblock: "1"`
+    (kernels 3/7/11, dilations 1/3/5) and `act_func_d: "swish"`. A seeded
+    serving checkpoint served two-phase float by EmoVITS in fp32 and in
+    bf16, the ResBlock2 model of [onnx] (`rb2_ckpt`) in both precisions in
+    turns with it (OPT_ROUNDS rounds after an untimed one), one decode held
+    against a CPU copy and one bf16 decode against fp32 on the same latent;
+    its int8 quantization refused; OPT_STEPS + 1 fp32 training steps with -d
+    (B 16, T_x 96, 400 frames), K2 once a step, every launch bit-exact
+    against the plain search; its ONNX export at OPT_ONNX checked and
+    evaluated on the card as [onnx]'s. Returns (K2 launches, K2's largest
+    difference, the ONNX evaluations)."""
+    from vits_tpu_torch.config import HParams
+    from vits_tpu_torch.infer import EmoVITS
+    from vits_tpu_torch.models.modules import ResBlock1
+    from vits_tpu_torch.onnx import export_onnx
+    from vits_tpu_torch.ops import mas
+    from vits_tpu_torch.ops.seq import infer_path
+    from vits_tpu_torch.train.loop import build_models, build_optimizers, build_step, init_state
+
+    with open(os.path.join(ROOT, "configs", "base.json")) as f:
+        cfg = json.load(f)
+    cfg["model"].update(resblock="1", act_func_d="swish")
+    src = os.path.join(workdir, "options_src")
+    os.makedirs(src)
+    ckpt = _write_checkpoint(src, cfg, SEED + 31)
+    engines = {}
+    for dtype in ("fp32", "bf16"):
+        engines[f"ResBlock1 {dtype}"] = EmoVITS(ckpt, device=str(dev), compute_dtype=dtype)
+        engines[f"ResBlock2 {dtype}"] = EmoVITS(rb2_ckpt, device=str(dev), compute_dtype=dtype)
+    rb1 = engines["ResBlock1 fp32"].synth
+    if not all(isinstance(b, ResBlock1) for b in rb1.dec.resblocks.values()) or \
+            not hasattr(rb1.dp, "act_2"):
+        raise RuntimeError("the options model is not a ResBlock1 + Swish synthesizer")
+    rng = np.random.RandomState(SEED + 32)
+    n_tok = 120
+    text = rng.randn(n_tok, rb1.enc_p.emb["0"].in_features).astype(np.float32)
+    emo = rng.randn(1024).astype(np.float32)
+    spk = int(rng.randint(0, rb1.emb_g.weight.shape[0]))
+    rates = {k: _rate_for(e, spk, text, emo, OPT_FRAMES, dev) for k, e in engines.items()}
+    lat = {k: [] for k in engines}
+    frames = {}
+    for rnd in range(OPT_ROUNDS + 1):
+        for k, e in engines.items():
+            np.random.seed(SEED + 33)
+            (wav, _), ms = _timed_call(e._infer_two_phase, spk, text, emo,
+                                       duration_rate=rates[k])
+            if len(wav) % e.hop_size or not np.all(np.isfinite(wav)):
+                raise RuntimeError(f"[options] {k}: {len(wav)} samples, finite "
+                                   f"{np.all(np.isfinite(wav))}")
+            frames[k] = len(wav) // e.hop_size
+            if rnd:
+                lat[k].append(ms)
+    m = cfg["model"]
+    log(f"[options] base config with resblock \"1\" (kernels {m['resblock_kernel_sizes']}, "
+        f"dilations {m['resblock_dilation_sizes']}) and act_func_d \"swish\" at full width; "
+        f"one {n_tok}-token request of ~{OPT_FRAMES} frames, two-phase float, {OPT_ROUNDS} "
+        f"rounds in turns after an untimed one: "
+        + ", ".join(f"{k} median {np.median(v):.2f} ms ({frames[k]} frames)"
+                    for k, v in lat.items())
+        + "; ResBlock1 / ResBlock2: fp32 "
+        f"{np.median(lat['ResBlock1 fp32']) / np.median(lat['ResBlock2 fp32']):.2f}x, bf16 "
+        f"{np.median(lat['ResBlock1 bf16']) / np.median(lat['ResBlock2 bf16']):.2f}x")
+
+    # one decode on the card against a CPU copy, and bf16 against fp32 on the
+    # same latent and alignment
+    e32, e16 = engines["ResBlock1 fp32"], engines["ResBlock1 bf16"]
+    with torch.inference_mode():
+        args = (torch.from_numpy(text[None, :64]).to(dev), torch.from_numpy(emo[None]).to(dev),
+                torch.tensor([spk], device=dev))
+        m_p, s_p, logw, g = rb1.infer_p1(*args)
+        w = torch.ceil(torch.exp(logw[..., 0]) * rates["ResBlock1 fp32"]).clamp(max=8.0)
+        attn = infer_path(w, max(int(w.sum()), 1))
+        noise = torch.from_numpy(np.random.RandomState(SEED).randn(
+            1, attn.shape[1], e32.inter_channels).astype(np.float32) * e32.noise_scale).to(dev)
+        gpu = rb1.infer_p2(attn, m_p, s_p, g, noise).cpu()
+        cpu = copy.deepcopy(rb1).cpu()
+        ref = cpu.infer_p2(*(t.cpu() for t in (attn, m_p, s_p, g, noise)))
+        b = e16.synth.infer_p1(args[0].bfloat16(), args[1].bfloat16(), args[2])
+        got16 = e16.synth.infer_p2(attn, b[0], b[1], b[3], noise)
+    err = float((gpu - ref).abs().max())
+    corr = _corr(gpu.numpy(), ref.numpy())
+    corr16 = _corr(got16.float().cpu().numpy(), gpu.numpy())
+    log(f"[options] ResBlock1 fp32 decode, card vs CPU, {attn.shape[1]} frames: max_abs_err "
+        f"{err:.3e} (tol 2e-3), corr {corr:.8f} (> 0.99999); bf16 against fp32 on the same "
+        f"latent: corr {corr16:.6f} (> {MIN_REQUEST_CORR})")
+    if not (err <= 2e-3 and corr > 0.99999 and corr16 > MIN_REQUEST_CORR):
+        raise RuntimeError("the ResBlock1 decode disagrees with the CPU or with fp32")
+    try:
+        rb1.quantize_decoder(torch.zeros(1, 8, e32.inter_channels, device=dev), g)
+        raise RuntimeError("quantizing the ResBlock1 decoder did not raise")
+    except NotImplementedError as e:
+        log(f"[options] quantize_decoder on the ResBlock1 decoder raised, as the JAX package's "
+            f"quantize does: NotImplementedError({str(e)!r})")
+    del engines, cpu, e32, e16, rb1
+    torch.cuda.empty_cache()
+
+    # the fp32 training step with the duration discriminator
+    hps = HParams(**cfg)
+    hps.use_dur_dis = True
+    synth, disc, dur = build_models(hps, "mel", use_dur_dis=True)
+    opts = build_optimizers(hps, "mel", use_dur_dis=True)
+    state = init_state(hps, synth, disc, dur, *opts, seed=SEED, device=dev)
+    step = build_step(hps, torch.float32)
+    B, T_x, T_y = TRAIN_B, TRAIN_TX, TRAIN_TY
+    batch = _bench_batch(hps, dev, B, T_x, T_y)
+    noise_gen = torch.Generator(device=dev).manual_seed(SEED)
+    lr = hps.train.learning_rate
+    calls, times = [], []
+    kernel = _recording_k2(calls)
+    try:
+        torch.cuda.synchronize()
+        mas.counter.launches = 0                          # main path starts here
+        for i in range(1 + OPT_STEPS):
+            noise = synth.draw_noise(B, T_x, T_y, noise_gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, noise, lr, lr, 0.01, lr)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if not _finite(metrics) or float(metrics["grad_norm_p"]) <= 0:
+                raise RuntimeError(f"[options] step {i}: losses "
+                                   f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
+        launches = mas.counter.launches                   # main path ends here
+    finally:
+        mas.maximum_path_cuda = kernel
+    if launches != 1 + OPT_STEPS:
+        raise RuntimeError(f"[options] K2 launched {launches} times in {1 + OPT_STEPS} steps")
+    mas_err, _ = _k2_calls_exact(dev, calls, launches)
+    log(f"[options] fp32 training step with -d (B {B}, T_x {T_x}, {T_y} frames): "
+        f"{[round(t, 1) for t in times]} ms (median of the {OPT_STEPS} after the warm-up "
+        f"{np.median(times[1:]):.1f}); K2 launches {launches}, each bit-exact against the "
+        f"plain search; last loss_g_total {float(metrics['loss_g_total']):.4f}, loss_disc_p "
+        f"{float(metrics['loss_disc_p']):.4f}, Swish scalars "
+        f"{state['gen'].dp.act_1.weight.item():.6f}, {state['gen'].dp.act_2.weight.item():.6f}")
+    del state, synth, disc, dur, batch
+    torch.cuda.empty_cache()
+
+    # the ONNX export of the options model at a smaller (t_x, t_y)
+    serving = EmoVITS(ckpt, device=str(dev)).synth
+    t0 = time.perf_counter()
+    timings = {}
+    paths = export_onnx(serving, os.path.join(workdir, "options_onnx"), *OPT_ONNX,
+                        timings=timings)
+    log(f"[options] ONNX export at {OPT_ONNX}: {time.perf_counter() - t0:.1f} s ("
+        + "; ".join(f"{p}: " + ", ".join(f"{k} {v:.2f} s" for k, v in t.items())
+                    for p, t in timings.items()) + ")")
+    _, evals = onnx_check_and_eval(dev, serving, paths, OPT_LENGTHS, *OPT_ONNX, "[options]")
+    del serving
+    torch.cuda.empty_cache()
+    return launches, mas_err, evals, float(np.median(times[1:]))
+
+
 def card_line() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -2488,6 +2872,12 @@ def main() -> int:
         sat_k1, sat_k2, sat_mas_err, sat_k1_err = phase("sat", phase_sat, dev, workdir)
     if sat_k1 <= 0 or sat_k2 <= 0:
         raise RuntimeError(f"the SAT path launched K1 {sat_k1} and K2 {sat_k2} times")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        rb2_ckpt, _, _ = phase("onnx", phase_onnx, dev, workdir)
+        opt_k2, opt_mas_err, _, _ = phase("options", phase_options, dev, workdir, rb2_ckpt)
+    if opt_k2 <= 0:
+        raise RuntimeError("the options model's training step launched K2 no time")
     card = card_line()
     main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
@@ -2520,8 +2910,9 @@ def main() -> int:
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
         "launches": (mas_launches + stft_launches + run_launches + run_stft_launches
-                     + ddp_launches + sat_k2),
-        "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err, ddp_mas_err, sat_mas_err),
+                     + ddp_launches + sat_k2 + opt_k2),
+        "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err, ddp_mas_err, sat_mas_err,
+                           opt_mas_err),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -2532,7 +2923,7 @@ def main() -> int:
         f"serving {launches}, fused {fused_launches}, servers {server_launches}, sat "
         f"{sat_k1}, bf16 form {bf16_launches}; K2 launches: training {mas_launches}, "
         f"training_stft {stft_launches}, run {run_launches}, run_stft {run_stft_launches}, "
-        f"ddp {ddp_launches}, sat {sat_k2}; phases: "
+        f"ddp {ddp_launches}, sat {sat_k2}, options {opt_k2}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)

@@ -6,8 +6,11 @@
 Runs chip_smoke.py's `[ddp]` phase once for each rank count of --ranks
 (default: one rank a card): the K2 kernel built, then torchrun's ranks
 (`chip_smoke.py --ddp-rank`), NCCL where every rank has a card of its own,
-gloo where ranks share one. Each run holds the N-rank fp32 step at N x 8
-against one process on the concatenated batch, trains the base config at
+gloo where ranks share one. Each run holds the N-rank step at N x 8
+against the float64 step of one process on the concatenated batch: the
+N-rank float64 step with cuDNN and without within 1e-9 relative, and the
+N-rank fp32 step without cuDNN within the fp32 tolerance; then it
+trains the base config at
 full width with -d, batch 32 a rank, for 4 fp32 and 4 bf16 steps (digests,
 rank 0's files, K2 bit-exact), prints each rank's step ms, gradient
 all-reduce ms, global audio-s/s and peak memory beside the card's name and

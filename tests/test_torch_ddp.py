@@ -23,6 +23,15 @@ of the ranks' one-process losses (rank-local normalisers, what averaging
 rank-local losses computes) misses the JAX KL and duration losses by more
 than the loss tolerance at these lengths.
 
+Float64: 4 ranks of 2 utterances each (unequal lengths across them) take
+the mel step with the duration discriminator in float64 (the models in
+float64 and `TrainStepConfig.compute_dtype` float64) against
+one process on the concatenated batch in float64: the summed losses within
+1e-9 relative, every summed gradient within 1e-9 of the tensor's largest
+magnitude, the MAS paths equal. float64 leaves summation order about 1e-16
+relative, so a rank split that changed the function shows far above that;
+the float32 comparisons above cannot tell such a fault from rounding.
+
 The CLIs: `python -m torch.distributed.run --nproc_per_node 2 -m
 vits_tpu_torch.train ... --device cpu` on the TINY corpus of
 tests/test_loop.py (the ranks' digests equal, only rank 0's files, the JAX
@@ -86,14 +95,15 @@ MRD = dict(num_dwt=2, wave_layers=4, fft_sizes=(64, 32), hop_sizes=(16, 8),
 CASES = {"mel": ("mel", False), "mel-d": ("mel", True), "stft": ("stft", True)}
 
 
-def _spawn(tmp_path, fn, *args):
-    """Run `fn(rank, WORLD, store, *args, out)` on WORLD spawned ranks; their
-    pickled results, once every rank has exited 0 within JOIN_S seconds."""
+def _spawn(tmp_path, fn, *args, world=WORLD):
+    """Run `fn(rank, world, store, *args, out)` on `world` spawned ranks;
+    their pickled results, once every rank has exited 0 within JOIN_S
+    seconds (`_join`)."""
     ctx = multiprocessing.get_context("spawn")
     store = tmp_path / "store"
-    outs = [tmp_path / f"rank{r}.pkl" for r in range(WORLD)]
-    procs = [ctx.Process(target=fn, args=(r, WORLD, str(store), *args, str(outs[r])))
-             for r in range(WORLD)]
+    outs = [tmp_path / f"rank{r}.pkl" for r in range(world)]
+    procs = [ctx.Process(target=fn, args=(r, world, str(store), *args, str(outs[r])))
+             for r in range(world)]
     for p in procs:
         p.start()
     return procs, outs
@@ -109,7 +119,7 @@ def _join(procs, outs):
             p.kill()
             p.join()
     assert not alive, f"{len(alive)} rank(s) still running after {JOIN_S} s"
-    assert [p.exitcode for p in procs] == [0] * WORLD
+    assert [p.exitcode for p in procs] == [0] * len(procs)
     results = []
     for out in outs:
         with open(out, "rb") as f:
@@ -228,6 +238,42 @@ def test_two_ranks_take_the_jax_mesh_step_on_the_global_batch(case, parity):
             u_j = params[name].numpy()
             assert np.all(np.abs(r0["state"][key][name] - u_j) <= 1e-6 + 1e-4 * np.abs(u_j)), \
                 name
+
+
+# four ranks of two: the even ranks' utterances long, the odd ranks' short
+X_LENGTHS_4 = (11, 10, 6, 5, 11, 9, 7, 5)
+SPEC_LENGTHS_4 = (24, 22, 14, 12, 23, 21, 15, 12)
+F64_RTOL = 1e-9
+
+
+def test_four_ranks_in_float64_take_the_one_process_step_on_the_global_batch(tmp_path):
+    b = _batch(B=8)
+    b["x_lengths"] = np.array(X_LENGTHS_4, np.int32)
+    b["spec_lengths"] = np.array(SPEC_LENGTHS_4, np.int32)
+    job = _job("mel", True, _weights("mel", True), b)
+    job["cfg"].update(compute_dtype=torch.float64)
+    for part in ("batch", "noise"):
+        job[part] = {k: v.double() if v.is_floating_point() else v for k, v in job[part].items()}
+    procs, outs = _spawn(tmp_path, torch_ddp_rank.step_rank, job, world=4)
+    state, m1 = torch_ddp_rank._step(job, 0, 1, None)  # one process, meanwhile
+    ranks = _join(procs, outs)
+
+    assert len({r["digest"] for r in ranks}) == 1
+    m4 = ranks[0]["metrics"]
+    keys = [k for k in m1 if k.startswith(("loss", "grad_norm"))]
+    assert "loss_kl" in keys and "loss_disc_p" in keys
+    for k in keys:
+        assert m4[k].dtype == np.float64, k
+        np.testing.assert_allclose(m4[k], m1[k].numpy(), rtol=F64_RTOL, atol=0, err_msg=k)
+    np.testing.assert_array_equal(np.concatenate([r["metrics"]["viz_attn"][None] for r in
+                                                  ranks[:1]]), m1["viz_attn"][None].numpy())
+    for key in ("gen", "disc", "dur"):
+        for name, p in state[key].named_parameters():
+            g1 = p.grad.numpy()
+            assert g1.dtype == np.float64
+            np.testing.assert_allclose(ranks[0]["grads"][key][name], g1, rtol=0,
+                                       atol=F64_RTOL * float(np.abs(g1).max()),
+                                       err_msg=f"{key}.{name}")
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,8 @@
 package's (`vits_tpu.export.main`) on the CPU at TINY: a run directory of
 three JAX-written G_*.npz (and D_*.npz for the multi-period discriminator
 and the MRD) exported by both, the greedy soup, the speaker-embedding reset,
-the parameter count, the `.pth` of `save_torch_checkpoint`, and the refusal
-of the ONNX level.
+the parameter count, the `.pth` of `save_torch_checkpoint`, and the ONNX
+level's refusal to trace without a GPU unless `--device cpu` is given.
 
 Both packages average in float64 and cast to float32, so every exported
 leaf is array_equal. The JAX exporter builds its checkpoint template with an
@@ -175,8 +175,14 @@ def test_single_file_export(run_dir, jax_templates, tmp_path):
     np.testing.assert_array_equal(got["emb_g"]["embedding"], want)
 
 
-def test_convert_2_raises_naming_a7(run_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
+def test_convert_2_needs_a_gpu_unless_cpu_is_asked(run_dir, tmp_path):
+    """`--convert 2` (the ONNX level) traces on the card by default: without
+    a GPU and without `--device cpu` it raises through resolve_device before
+    writing anything. tests/test_torch_onnx.py runs it with `--device
+    cpu`."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; this checks the refusal without one")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         texport.main(["--outdir", str(tmp_path / "o"), "--checkpoint", run_dir[0],
                       "--convert", "2", "--verbose", "0"])
     assert not os.path.exists(tmp_path / "o" / "checkpoint.npz")

@@ -26,6 +26,8 @@ def _join(rank, world, store):
 
 
 def _models(job):
+    """The job's models and optimizers; in float64 where the job's step
+    config asks for float64 masters."""
     synth = params_from_jax(job["gen"], Synthesizer(**job["synth"], weight_norm=True)).train()
     if job["cfg"]["variant"] == "stft":
         disc, kind = MultiWaveSTFTDiscriminator(**job["mrd"]), "radam"
@@ -39,6 +41,10 @@ def _models(job):
         dur = params_from_jax(job["dur"], DurationDiscriminator(*job["dur_args"])).train()
         state.update(dur=dur,
                      dur_opt=Optimizer((0.8, 0.99), 1e-9, 0.0, kind).init(dur.parameters()))
+    dtype = torch.promote_types(job["cfg"].get("compute_dtype", torch.float32), torch.float32)
+    for key in ("gen", "disc", "dur"):
+        if key in state:
+            state[key].to(dtype)
     return state
 
 
@@ -56,9 +62,9 @@ def _step(job, rank, world, group):
 
 
 def step_rank(rank, world, store, job, out):
-    """One step of the 2-rank port on this rank's half of the batch and the
-    noise, and, as the control, the same step in one process on the same
-    half (rank-local normalisers). Writes the summed metrics, the control's
+    """One step of the `world`-rank port on this rank's part of the batch
+    and the noise, and, as the control, the same step in one process on the
+    same part (rank-local normalisers). Writes the summed metrics, the control's
     metrics, every summed gradient, the updated parameters and buffers."""
     _join(rank, world, store)
     try:

@@ -17,7 +17,8 @@ layouts differ (the torch layouts of vits_tpu/utils/torch_compat.py):
   spectral norm "u"  (out,)             weight_u (a buffer)
   "b"                                   bias
   Embedding "embedding" (n, d)          weight (n, d)
-  "gamma", "beta", "alpha"              unchanged
+  Swish "weight" (1,)                   weight (1,)
+  "gamma", "beta", "alpha", "m", "logs" unchanged
 
 A {"g", "v"} pair goes to `weight_g`/`weight_v` when the target model has
 them (a training model, `Synthesizer.from_hps(hps, train=True)`, the
@@ -144,7 +145,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
     inverse of `params_from_jax`: `weight_g`/`weight_v` become {"g", "v"}
     (a training state goes back to the JAX package's training tree),
     `weight_orig`/`weight_u` {"w_orig", "u"}, a plain `weight` "w" (or
-    "embedding" under emb_g)."""
+    "embedding" under emb_g, and "weight" for Swish's 1-D scalar)."""
     kernels = {"weight_v": "v", "weight_orig": "w_orig", "weight": "w"}
     tree: Dict[str, Any] = {}
     for key, t in state.items():
@@ -158,8 +159,8 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
         elif name == "weight_g":
             leaf = "g"
             arr = arr.reshape(1, -1, 1) if _is_transposed(path) else arr.reshape(-1)
-        elif name == "weight":
-            leaf = "embedding"
+        elif name == "weight":  # the speaker embedding's table, or Swish's scalar
+            leaf = "embedding" if path[-1:] == ("emb_g",) else "weight"
         elif name == "bias":
             leaf = "b"
         elif name == "weight_u":

@@ -3,7 +3,7 @@
     python -m vits_tpu_torch.export -o <outdir> --checkpoint <run dir | .npz | .pth>
         [--config config.json] [-d 0|1|2] [--init-spk-embed] [--greedy-soup N]
         [--convert 0|1|2] [--text-buckets 32,64] [--frame-buckets 128,256]
-        [--device cuda|cpu] [--verbose 0|1]
+        [--onnx-tx 48] [--onnx-ty 384] [--device cuda|cpu] [--verbose 0|1]
 
 A run directory is read as the greedy soup (the mean) of its last N
 `G_*.npz` checkpoints (`D_*.npz` with -d 1, the multi-period discriminator,
@@ -12,9 +12,11 @@ embedding can be reset to row 0 (`--init-spk-embed`). The generator's
 parameter count is logged as the reference counts it. The output directory
 gets the config and `checkpoint.npz` ({"model": the JAX package's parameter
 tree}), which both packages serve. `--convert 1` also writes the bucketed
-ahead-of-time programs of `vits_tpu_torch.serve.aot` (traced on --device,
-`cuda` by default). `--convert 2`, the ONNX export, is not ported (ROADMAP.md
-A7) and raises.
+ahead-of-time programs of `vits_tpu_torch.serve.aot`; `--convert 2` writes
+those and the ONNX interchange files `model_p1.onnx` / `model_p2.onnx` of
+`vits_tpu_torch.onnx` (p1 traced at --onnx-tx tokens with the text
+axis dynamic, p2 at --onnx-tx x --onnx-ty), the JAX package's contract.
+Everything is traced on --device, `cuda` by default.
 """
 
 from __future__ import annotations
@@ -102,7 +104,12 @@ def main(argv=None):
     parser.add_argument("--greedy-soup", "--greedy", default=5, type=int)
     parser.add_argument("--convert", "-c", default=0, type=int,
                         help="1: also write the bucketed infer_p1/p2 programs (.pt2); "
-                             "2: ONNX, not ported (ROADMAP.md A7)")
+                             "2: also model_p1.onnx / model_p2.onnx")
+    parser.add_argument("--onnx-tx", type=int, default=48,
+                        help="text length model_p1/p2.onnx are traced at "
+                             "(p1 is length-dynamic)")
+    parser.add_argument("--onnx-ty", type=int, default=384,
+                        help="frame count model_p2.onnx is traced at")
     parser.add_argument("--text-buckets", type=str, default=None,
                         help="comma-separated text buckets for --convert")
     parser.add_argument("--frame-buckets", type=str, default=None,
@@ -111,8 +118,6 @@ def main(argv=None):
                         help="torch device the programs are traced on (default cuda)")
     parser.add_argument("--verbose", type=int, default=1)
     args = parser.parse_args(argv)
-    if args.convert >= 2:
-        raise NotImplementedError("--convert 2 (ONNX export) is not ported: ROADMAP.md A7")
     dev = resolve_device(args.device) if args.convert and not args.discriminator else None
 
     logging.basicConfig(level=logging.INFO if args.verbose else logging.WARN, stream=sys.stdout)
@@ -152,6 +157,15 @@ def main(argv=None):
             kw["frame_buckets"] = _buckets(args.frame_buckets)
         n = export_aot(synth, args.outdir, hps, **kw)
         logging.info("AOT-exported %d bucketed programs to %s", n, args.outdir)
+        if args.convert >= 2:
+            from vits_tpu_torch.onnx import export_onnx
+            timings = {}
+            paths = export_onnx(synth, args.outdir, t_x=args.onnx_tx, t_y=args.onnx_ty,
+                                timings=timings)
+            for part, path, t in zip((1, 2), paths, timings.values()):
+                logging.info("Successfully convert part%d to onnx: [%s] (trace %.2f s, "
+                             "decompositions %.2f s, conversion %.2f s, write %.2f s)", part,
+                             path, t["trace"], t["decompose"], t["convert"], t["write"])
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-"""Core blocks (counterpart of vits_tpu/models/modules.py): the WaveNet
-stack, the GLU ResBlock2 with its int8 form, and the mean-only coupling flow
-in both directions. Tensors are channel-last (B, T, C). `weight_norm=True`
-builds the layers the JAX package weight-normalises (WN's in/res-skip/cond
-layers, ResBlock2's convs and conds) with trainable g/v pairs.
+"""Core blocks (counterpart of vits_tpu/models/modules.py): the learned
+Swish, the WaveNet stack, the GLU ResBlock2 with its int8 form, the
+tanh-gated ResBlock1 (float only, as in the JAX package), the affine
+coupling flow in both directions (mean-only by default) with its logdet,
+ElementwiseAffine and the Log flow. Tensors are channel-last (B, T, C).
+`weight_norm=True` builds the layers the JAX package weight-normalises
+(WN's in/res-skip/cond layers, the resblocks' convs and conds) with
+trainable g/v pairs.
 
 Masking rule (the JAX package's): every conv with k > 1 sees masked input,
 so bucketed, padded inference equals exact-length inference.
@@ -33,6 +36,23 @@ def _round16(c: int) -> int:
 def flip_channels(x):
     """modules.Flip: reverse the channel axis."""
     return torch.flip(x, dims=(-1,))
+
+
+class Swish(nn.Module):
+    """x * sigmoid(w * x) with a learned scalar w, initialised to 1 (the
+    duration predictor's `act_func_d: "swish"`)."""
+
+    def __init__(self, num_parameters: int = 1, init: float = 1.0):
+        super().__init__()
+        self.init = init
+        self.weight = nn.Parameter(torch.full((num_parameters,), init))
+
+    def reset_parameters(self, gen=None):
+        with torch.no_grad():
+            self.weight.fill_(self.init)
+
+    def forward(self, x):
+        return x * torch.sigmoid(self.weight * x)
 
 
 class WN(nn.Module):
@@ -150,28 +170,112 @@ class ResBlock2(nn.Module):
         return rb_chain.resblock2_chain_q8(qp, x, gs, valid)
 
 
+class ResBlock1(nn.Module):
+    """The fork's speaker-conditioned, tanh-gated HiFi-GAN resblock
+    (vits_tpu ResBlock1, modules.py:126): per dilation, xt = tanh(conv1(
+    lrelu(x)) + cond(g)) over 2 * inter channels, of which conv2 takes the
+    first `inter_channels` (the reference's block is shape-inconsistent
+    there; the JAX package takes the first half), masked, then the residual
+    add. Float only: neither package has an int8 form of it."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilation: Sequence[int] = (1, 3, 5), gin_channels: int = 0,
+                 weight_norm: bool = False):
+        super().__init__()
+        self.channels, self.kernel_size = channels, kernel_size
+        self.dilation = tuple(dilation)
+        self.inter_channels = ic = _round16(channels)
+        wn = weight_norm
+        self.convs1 = nn.ModuleDict({
+            str(i): Conv1d(channels, 2 * ic, kernel_size, padding=(kernel_size * d - d) // 2,
+                           dilation=d, weight_norm=wn) for i, d in enumerate(self.dilation)})
+        self.convs2 = nn.ModuleDict({
+            str(i): Conv1d(ic, channels, kernel_size, padding=(kernel_size - 1) // 2,
+                           weight_norm=wn)
+            for i in range(len(self.dilation))})
+        self.conds = nn.ModuleDict({str(i): Dense(gin_channels, 2 * ic, weight_norm=wn)
+                                    for i in range(len(self.dilation))})
+
+    def forward(self, x, g, x_mask=None, record=None, rec_prefix=""):
+        del record, rec_prefix  # no int8 form to calibrate
+        ic = self.inter_channels
+        for i in range(len(self.dilation)):
+            xt = self.convs1[str(i)](leaky_relu(x, LRELU_SLOPE))
+            xt = torch.tanh(xt + self.conds[str(i)](g)[:, None, :])
+            xt = self.convs2[str(i)](_mask(xt[..., :ic], x_mask))
+            x = _mask(xt + x, x_mask)
+        return x
+
+
 class ResidualCouplingLayer(nn.Module):
-    """Mean-only affine coupling over channel halves; the post conv is
+    """Affine coupling over channel halves, mean-only unless `mean_only`
+    is False (then the post conv also gives log-scales); the post conv is
     zero-initialised so each flow starts at identity."""
 
     def __init__(self, channels: int, hidden_channels: int, kernel_size: int,
                  dilation_rate: int, n_layers: int, gin_channels: int = 0,
-                 weight_norm: bool = False):
+                 weight_norm: bool = False, mean_only: bool = True):
         super().__init__()
         self.half_channels = channels // 2
+        self.mean_only = mean_only
         self.pre = Conv1d(self.half_channels, hidden_channels, 1)
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers,
                       gin_channels=gin_channels, weight_norm=weight_norm)
-        self.post = Conv1d(hidden_channels, self.half_channels, 1, init="zeros")
+        self.post = Conv1d(hidden_channels, self.half_channels * (2 - int(mean_only)), 1,
+                           init="zeros")
 
     def forward(self, x, x_mask=None, g=None, reverse: bool = True):
-        """reverse: x1 <- (x1 - m(x0)) masked (inference); forward
-        (reverse=False, training): x1 <- (m(x0) + x1) masked. The logdet of a
-        mean-only flow is 0 and is not returned."""
+        """reverse: x1 <- (x1 - m(x0)) * exp(-logs(x0)) masked (inference),
+        returns x; forward (reverse=False, training): x1 <- m(x0) + x1 *
+        exp(logs(x0)) masked, returns (x, logdet (B,)), logdet the sum of
+        logs over time and channels (0 for a mean-only flow)."""
         half = self.half_channels
         x0, x1 = x[..., :half], x[..., half:]
         h = _mask(self.pre(x0), x_mask)
         h = self.enc(h, x_mask, g=g)
-        m = _mask(self.post(h), x_mask)
-        x1 = _mask(x1 - m if reverse else m + x1, x_mask)
-        return torch.cat([x0, x1], dim=-1)
+        stats = _mask(self.post(h), x_mask)
+        if self.mean_only:
+            m, logs = stats, None
+        else:
+            m, logs = stats[..., :half], stats[..., half:]
+        if reverse:
+            x1 = x1 - m if logs is None else (x1 - m) * torch.exp(-logs)
+            return torch.cat([x0, _mask(x1, x_mask)], dim=-1)
+        if logs is None:
+            x1, logdet = m + x1, x.new_zeros(x.shape[0])
+        else:
+            x1, logdet = m + x1 * torch.exp(logs), torch.sum(logs, dim=(1, 2))
+        return torch.cat([x0, _mask(x1, x_mask)], dim=-1), logdet
+
+
+class ElementwiseAffine(nn.Module):
+    """modules.ElementwiseAffine (vits_tpu modules.py:397): y = m + exp(logs)
+    * x per channel, with logdet sum(logs) over the masked positions; m and
+    logs start at 0. Present in the reference and unused by its model."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.m = nn.Parameter(torch.zeros(channels))
+        self.logs = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, gen=None):
+        with torch.no_grad():
+            self.m.zero_()
+            self.logs.zero_()
+
+    def forward(self, x, x_mask=None, reverse: bool = False):
+        """forward: (y, logdet (B,)); reverse: x."""
+        if reverse:
+            return _mask((x - self.m) * torch.exp(-self.logs), x_mask)
+        y = _mask(self.m + torch.exp(self.logs) * x, x_mask)
+        logs = self.logs.expand(x.shape)
+        return y, torch.sum(logs if x_mask is None else logs * x_mask, dim=(1, 2))
+
+
+def log_flow(x, x_mask=None, reverse: bool = False):
+    """modules.Log (vits_tpu modules.py:417): forward y = log(max(x, 1e-5))
+    masked, returns (y, logdet = -sum(y)); reverse exp(x) masked."""
+    if reverse:
+        return _mask(torch.exp(x), x_mask)
+    y = _mask(torch.log(torch.clamp(x, min=1e-5)), x_mask)
+    return y, torch.sum(-y, dim=(1, 2))

@@ -28,8 +28,10 @@ from vits_tpu_torch.models.attentions import Encoder
 from vits_tpu_torch.models.modules import (
     LRELU_SLOPE,
     WN,
+    ResBlock1,
     ResBlock2,
     ResidualCouplingLayer,
+    Swish,
     flip_channels,
 )
 from vits_tpu_torch.nn import quant as Q
@@ -57,18 +59,24 @@ def stream_windows(n_frames: int, chunk: int, halo: int, limit: Optional[int] = 
 
 
 class DurationPredictor(nn.Module):
-    """conv -> ReLU -> LN (-> dropout in training mode) twice with two
-    speaker-conditioning adds (the shipped configs' act_func_d is ReLU). Its
-    inputs are detached: the duration loss trains this module alone."""
+    """conv -> act -> LN (-> dropout in training mode) twice with two
+    speaker-conditioning adds; act is ReLU (the shipped configs'
+    act_func_d) or, with act_func "swish", a learned Swish of its own after
+    each conv (`act_1`, `act_2`). Its inputs are detached: the duration loss
+    trains this module alone."""
 
     def __init__(self, in_channels: int, filter_channels: int, kernel_size: int = 5,
                  act_func: str = "ReLU", gin_channels: int = 0, p_dropout: float = 0.0):
         super().__init__()
         f, k = filter_channels, kernel_size
         self.p_dropout = p_dropout
-        if act_func.lower() != "relu":
-            raise NotImplementedError(f"act_func {act_func}: the port's duration predictor "
-                                      "runs ReLU only")
+        act = act_func.lower()
+        if act not in ("relu", "swish"):
+            raise ValueError(f"unsupported act_func {act_func}")
+        if act == "swish":
+            self.act_1, self.act_2 = Swish(), Swish()
+        else:
+            self.act_1 = self.act_2 = torch.relu
         self.pre = Conv1d(in_channels, f, 1)
         self.conv_1 = Conv1d(f, f, k, padding=k // 2)
         self.norm_1 = LayerNorm(f)
@@ -82,9 +90,9 @@ class DurationPredictor(nn.Module):
         p = self.p_dropout if self.training else 0.0
         x, g = x.detach(), g.detach()
         x = self.pre(x) + self.cond1(g)[:, None, :]
-        x = dropout(self.norm_1(torch.relu(self.conv_1(_mask(x, x_mask)))), p, rng)
+        x = dropout(self.norm_1(self.act_1(self.conv_1(_mask(x, x_mask)))), p, rng)
         x = x + self.cond2(g)[:, None, :]
-        x = dropout(self.norm_2(torch.relu(self.conv_2(_mask(x, x_mask)))), p, rng)
+        x = dropout(self.norm_2(self.act_2(self.conv_2(_mask(x, x_mask)))), p, rng)
         x = self.proj(_mask(x, x_mask))
         return _mask(x, x_mask)  # (B, T, 1) log-durations
 
@@ -126,7 +134,11 @@ class DurationDiscriminator(nn.Module):
 class TextEncoder(nn.Module):
     """Dense + LN embedding of float text vectors, 1024-d emotion projection,
     learned-alpha sinusoidal positions, transformer stack, conv projection to
-    (m, logs)."""
+    (m, logs). The positional table of `max_pos` rows is built once, a
+    non-persistent buffer (no state-dict entry), and sliced to the text
+    length; a longer text builds a table of its own length, as the JAX text
+    encoder's `max(max_pos, T)` rows do, with the same values (each row
+    depends on its position alone)."""
 
     def __init__(self, in_channels, out_channels, hidden_channels, filter_channels,
                  n_heads, n_layers, kernel_size, ffn="FFN2", gin_channels=0,
@@ -141,6 +153,8 @@ class TextEncoder(nn.Module):
         self.encoder = Encoder(h, filter_channels, n_heads, n_layers, kernel_size,
                                ffn=ffn, gin_channels=gin_channels, p_dropout=p_dropout)
         self.proj = Conv1d(h, out_channels * 2, 1, init="xavier")
+        self.register_buffer("pe", torch.from_numpy(gen_sin_table(max_pos, h)),
+                             persistent=False)
 
     def reset_parameters(self, gen=None):
         with torch.no_grad():
@@ -150,8 +164,11 @@ class TextEncoder(nn.Module):
         h, T = self.hidden_channels, x.shape[1]
         x = self.emb["1"](self.emb["0"](x))
         x = x + self.emo_proj(emo)[:, None, :]
-        pe = torch.from_numpy(gen_sin_table(max(self.max_pos, T), h)[:, :T]).to(x)
-        x = x * math.sqrt(h) + pe * self.alpha
+        if T <= self.max_pos:
+            pe = self.pe[:, :T]
+        else:
+            pe = torch.from_numpy(gen_sin_table(T, h)).to(x.device)
+        x = x * math.sqrt(h) + pe.to(x.dtype) * self.alpha
         x = self.encoder(x, x_mask, g=g, rng=rng)
         stats = _mask(self.proj(x), x_mask)
         return x, stats[..., :self.out_channels], stats[..., self.out_channels:]
@@ -205,23 +222,25 @@ class ResidualCouplingBlock(nn.Module):
                 x = self.flows[str(2 * i)](flip_channels(x), x_mask, g=g, reverse=True)
             return x
         for i in range(self.n_flows):
-            x = flip_channels(self.flows[str(2 * i)](x, x_mask, g=g, reverse=False))
+            x = flip_channels(self.flows[str(2 * i)](x, x_mask, g=g, reverse=False)[0])
         return x
 
 
 class Generator(nn.Module):
     """HiFi-GAN decoder: conv_pre(7) -> per stage [lrelu -> transposed-conv
-    upsample -> mean of ResBlock2s] -> lrelu(0.01) -> conv_post(7, no bias)
-    -> tanh. `forward` is the float path (with optional calibration record),
-    `forward_q8` the int8 path over `quantize`'s params."""
+    upsample -> mean of resblocks (ResBlock2, or ResBlock1 with `resblock`
+    "1")] -> lrelu(0.01) -> conv_post(7, no bias) -> tanh. `forward` is the
+    float path (with optional calibration record), `forward_q8` the int8
+    path over `quantize`'s params, for ResBlock2 decoders only: `calibrate`,
+    `quantize` and `forward_q8` of a ResBlock1 decoder raise, as the JAX
+    package's `quantize` does."""
 
     def __init__(self, initial_channel, resblock, resblock_kernel_sizes,
                  resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
                  upsample_kernel_sizes, gin_channels=0, weight_norm: bool = False):
         super().__init__()
-        if str(resblock) != "2":
-            raise NotImplementedError("the port serves ResBlock2 decoders (the shipped "
-                                      "configs' resblock); ResBlock1 is not ported yet")
+        self.resblock = str(resblock)
+        block = ResBlock1 if self.resblock == "1" else ResBlock2
         self.upsample_rates = tuple(upsample_rates)
         self.upsample_kernel_sizes = tuple(upsample_kernel_sizes)
         self.num_kernels = len(resblock_kernel_sizes)
@@ -233,12 +252,17 @@ class Generator(nn.Module):
             ups[str(i)] = ConvTranspose1d(uic // 2 ** i, uic // 2 ** (i + 1), k, u,
                                           padding=(k - u) // 2, weight_norm=weight_norm)
             for j in range(self.num_kernels):
-                rbs[str(i * self.num_kernels + j)] = ResBlock2(
+                rbs[str(i * self.num_kernels + j)] = block(
                     uic // 2 ** (i + 1), resblock_kernel_sizes[j],
                     tuple(resblock_dilation_sizes[j]), gin_channels, weight_norm=weight_norm)
         self.ups = nn.ModuleDict(ups)
         self.resblocks = nn.ModuleDict(rbs)
         self.conv_post = Conv1d(uic // 2 ** self.num_upsamples, 1, 7, padding=3, bias=False)
+
+    def _require_int8(self):
+        if self.resblock != "2":
+            raise NotImplementedError("int8 decode implemented for ResBlock2 "
+                                      "(the shipped configs' resblock)")
 
     def _length_preserving(self, i) -> bool:
         u, k = self.upsample_rates[i], self.upsample_kernel_sizes[i]
@@ -278,6 +302,7 @@ class Generator(nn.Module):
         ResBlock2 chain and conv_post run s8 x s8 -> s32, each dequantized
         to the activation dtype (float32 or bfloat16); gates, residuals and
         the speaker conditioning stay in it (K1 computes its gate in f32)."""
+        self._require_int8()
         q = qp["pre"]
         x = Q.conv1d_q8(Q.quantize_act(x, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
                         q["b"], padding=3, out_dtype=x.dtype)
@@ -312,6 +337,7 @@ class Generator(nn.Module):
     def calibrate(self, x, g=None, x_mask=None) -> Dict[str, torch.Tensor]:
         """One float decode recording the max-abs of every quantizable conv
         input; feed to `quantize`."""
+        self._require_int8()
         record = {}
         self.forward(x, g=g, x_mask=x_mask, record=record)
         return record
@@ -322,6 +348,7 @@ class Generator(nn.Module):
         calibration record. Per-output-channel weight scales for the regular
         convs; per-(output phase mod stride, channel) scales for the
         upsamples, the scales the JAX package's packed quantization gives."""
+        self._require_int8()
         w8, s_w = Q.quantize_kernel(Q.kernel_klast(self.conv_pre.weight))
         qp = {"pre": {"w8": w8, "s_w": s_w, "b": self.conv_pre.bias.detach().float(),
                       "s_in": Q.act_scale(scales["pre_in"])},

@@ -162,6 +162,20 @@ def make_spectral_norm(c_out: int, gen: Optional[torch.Generator] = None) -> tor
 
 
 @torch.no_grad()
+def fold_module_weight_norm(module: nn.Module) -> nn.Module:
+    """Replace every weight-norm pair under `module` by the plain `weight`
+    it computes, in place (`fold_weight_norm` on a module): the layers then
+    compute the same function from one kernel each."""
+    for m in module.modules():
+        if isinstance(m, _Kernel) and m.weight_norm:
+            w = m.kernel().detach().clone()
+            del m.weight_g, m.weight_v
+            m.weight_norm = False
+            m.weight = nn.Parameter(w)
+    return module
+
+
+@torch.no_grad()
 def sn_update(module: nn.Module) -> nn.Module:
     """Advance every spectral-norm u under `module` by one power iteration on
     its current `weight_orig` (vits_tpu/nn/core.py:116): once per

@@ -73,12 +73,18 @@ def clip_grad_value(params: Iterable[torch.Tensor]) -> torch.Tensor:
     """The global 2-norm of the gradients of `params`, as the training step
     calls the reference's clip_grad_value_(params, None)
     (vits_tpu/ops/seq.py:115): the norm is reported and nothing is clipped.
-    Returns a 0-d float32 tensor; parameters without a gradient count as
-    zero."""
+    Returns a 0-d float32 tensor (float64 for float64 gradients); parameters
+    without a gradient count as zero."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return torch.zeros(())
-    return torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in grads))
+    return torch.sqrt(sum(torch.sum(torch.square(wide(g))) for g in grads))
+
+
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """t in float32 at least: bfloat16 widened, float64 (the training step's
+    float64 reference) kept."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def gen_sin_table(max_len: int, d_model: int) -> np.ndarray:

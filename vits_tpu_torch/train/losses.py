@@ -1,11 +1,13 @@
 """GAN, feature-matching and KL losses, and the stft/MRD variant's
 multi-resolution STFT loss (counterpart of vits_tpu/train/losses.py), all in
-float32."""
+float32 (float64 where the inputs are: the step's float64 masters, a check
+that no training setting selects)."""
 
 from __future__ import annotations
 
 import torch
 
+from vits_tpu_torch.ops.seq import wide
 from vits_tpu_torch.ops.stft import stft
 
 # (fft_size, hop_size, win_size) of the five resolutions (losses.py:100)
@@ -19,7 +21,7 @@ def feature_loss(fmap_r, fmap_g) -> torch.Tensor:
     loss = 0.0
     for dr, dg in zip(fmap_r, fmap_g):
         for rl, gl in zip(dr, dg):
-            loss = loss + torch.mean(torch.abs(rl.detach().float() - gl.float()))
+            loss = loss + torch.mean(torch.abs(wide(rl.detach()) - wide(gl)))
     return loss * 2.0
 
 
@@ -28,8 +30,8 @@ def discriminator_loss(disc_real_outputs, disc_generated_outputs):
     loss = 0.0
     r_losses, g_losses = [], []
     for dr, dg in zip(disc_real_outputs, disc_generated_outputs):
-        r_loss = torch.mean(torch.square(1.0 - dr.float()))
-        g_loss = torch.mean(torch.square(dg.float()))
+        r_loss = torch.mean(torch.square(1.0 - wide(dr)))
+        g_loss = torch.mean(torch.square(wide(dg)))
         loss = loss + r_loss + g_loss
         r_losses.append(r_loss)
         g_losses.append(g_loss)
@@ -41,7 +43,7 @@ def generator_loss(disc_outputs):
     loss = 0.0
     gen_losses = []
     for dg in disc_outputs:
-        l = torch.mean(torch.square(1.0 - dg.float()))
+        l = torch.mean(torch.square(1.0 - wide(dg)))
         gen_losses.append(l)
         loss = loss + l
     return loss, gen_losses
@@ -49,7 +51,7 @@ def generator_loss(disc_outputs):
 
 def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
     """Masked Gaussian KL; all (B, T, C), z_mask (B, T, 1)."""
-    z_p, logs_q, m_p, logs_p, z_mask = (t.float() for t in (z_p, logs_q, m_p, logs_p, z_mask))
+    z_p, logs_q, m_p, logs_p, z_mask = (wide(t) for t in (z_p, logs_q, m_p, logs_p, z_mask))
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * torch.square(z_p - m_p) * torch.exp(-2.0 * logs_p)
     return torch.sum(kl * z_mask) / torch.sum(z_mask)
@@ -58,7 +60,7 @@ def kl_loss(z_p, logs_q, m_p, logs_p, z_mask) -> torch.Tensor:
 def stft_magnitude(x, fft_size: int, hop_size: int, win_size: int) -> torch.Tensor:
     """|STFT| with center=True and the 1e-7 floor (losses.py:72):
     x (B, T) -> (B, T', F)."""
-    re, im = stft(x.float(), fft_size, hop_size, win_size, center=True)
+    re, im = stft(wide(x), fft_size, hop_size, win_size, center=True)
     return torch.sqrt(re * re + im * im + 1e-7)
 
 

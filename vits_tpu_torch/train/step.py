@@ -45,6 +45,11 @@ inputs x, spec and emo, the slices
 and y_hat cast; y_hat comes back to float32 for the mel loss; losses,
 gradients and optimizer state are float32, the gradients landing on the
 masters through the casts. In float32 the casts are identities.
+compute_dtype float64 runs the whole step in float64 (the models converted
+by the caller, `.double()`; the step's own dtype is the wider of the compute
+dtype and float32): the reference that tells float32 rounding from a fault
+when two float32 steps disagree. No training setting selects it; MAS still
+searches on neg_cent rounded to float32, as the kernel takes it.
 
 Data parallelism (`make_train_step(cfg, group)`, one rank a card,
 `vits_tpu_torch.parallel.dist`): the gradient is that of the JAX step's
@@ -212,14 +217,15 @@ def make_train_step(cfg: TrainStepConfig, group=None):
                    align_noise: float, lr_p: float = 1e-4):
         synth, disc = state["gen"], state["disc"]
         cd = cfg.compute_dtype
+        pd = torch.promote_types(cd, torch.float32)
         stft = cfg.variant == "stft"
         wav = batch["wav"]
         if wav.dtype == torch.int16:
-            wav = wav.float() * (1.0 / 32767.0)
+            wav = wav.to(pd) * (1.0 / 32767.0)
         else:
-            wav = wav.float()
+            wav = wav.to(pd)
         if "spec" in batch:
-            spec = batch["spec"].float()
+            spec = batch["spec"].to(pd)
         else:
             frames = (wav.shape[1] - cfg.filter_length) // cfg.hop_length
             with torch.no_grad():
@@ -233,7 +239,7 @@ def make_train_step(cfg: TrainStepConfig, group=None):
         seg = cfg.segment_frames * cfg.hop_length
         y_slice = slice_segments_1d(wav, ids * cfg.hop_length, seg)[..., None]
         y_slice_c = y_slice.to(cd)
-        y_hat = out["y_hat"].float()
+        y_hat = out["y_hat"].to(pd)
 
         # ---------------- D step (train.py:204-214) ----------------
         disc.requires_grad_(True)
@@ -273,13 +279,13 @@ def make_train_step(cfg: TrainStepConfig, group=None):
 
         # ---------------- G step (train.py:222-242) ----------------
         disc.requires_grad_(False)
-        loss_dur = torch.sum(out["l_length"].float()) * cfg.c_dur
+        loss_dur = torch.sum(out["l_length"].to(pd)) * cfg.c_dur
         loss_kl = L.kl_loss(out["z_p"], out["logs_q"], out["m_p"], out["logs_p"],
                             out["y_mask"]) * cfg.c_kl
         loss_kl_q = L.kl_loss(out["z_q"], out["logs_p"], out["m_q"], out["logs_q"],
                               out["y_mask"]) * cfg.c_kl_q
         if parallel:  # masked sums over the global counts
-            n = torch.stack([torch.sum(out["x_mask"].float()), torch.sum(out["y_mask"].float())])
+            n = torch.stack([torch.sum(out["x_mask"].to(pd)), torch.sum(out["y_mask"].to(pd))])
             frac = n / dist.global_count(n, group)
             loss_dur = loss_dur * frac[0]
             loss_kl, loss_kl_q = loss_kl * frac[1], loss_kl_q * frac[1]
@@ -326,7 +332,7 @@ def make_train_step(cfg: TrainStepConfig, group=None):
         Optimizer.update(state["gen_opt"], lr_g)
         state["step"] += 1
 
-        zero = torch.zeros((), device=wav.device)
+        zero = torch.zeros((), device=wav.device, dtype=pd)
         metrics = {
             **losses, "loss_gen": loss_gen,
             "loss_dur": loss_dur, "loss_kl": loss_kl, "loss_kl_q": loss_kl_q,
