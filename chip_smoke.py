@@ -173,14 +173,39 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 steps with -d (B 16, T_x 96, 400 frames), K2 once a step, every
                 launch bit-exact against the plain search, the step ms; its
                 ONNX export at (32, 128) checked and evaluated as [onnx]'s;
- 11. card     - print the card's name and power limit.
+ 11. tp       - tensor parallelism and the graft entry points: (a) the
+                base config's decoder split over 2 ranks started by `python
+                -m torch.distributed.run --nproc_per_node 2 chip_smoke.py
+                --tp-rank job.json` (`parallel/mesh.py`: the 57 kernels of
+                JAX's rule at min_channels 128; gloo with both ranks on
+                cuda:0, NCCL with a card a rank), seeded weight-normed
+                weights folded and sliced by `make_tp_infer`: infer_p2 at
+                (T_x 48, T_y 384) and (125, 1000) against the one-process
+                infer_p2 on the card in fp32 with TF32 off (atol 2e-4, rtol
+                2e-3), the ranks' outputs equal, each rank's decoder
+                parameters (8,667,072 of the training tree in the JAX layout;
+                8,647,520 of the folded decoder it serves from, whose split
+                layers' biases are sliced too) and bytes, the memory the rank
+                holds on the card (its synthesizer and nothing more:
+                make_tp_infer replaces the whole decoder), the sharded p2's
+                ms against the one-process p2's and the gathers' ms by CUDA
+                events; (b)
+                `graft_entry.dryrun_multichip(2)` (TINY data-parallel mel and
+                stft steps and a tensor-parallel decode on 2 ranks); (c)
+                `graft_entry.entry()` once (the base config's training
+                forward at B 2, T_x 48, T_y 192); every K2 launch of (b) and
+                (c) bit-exact against the plain search;
+ 12. card     - print the card's name and power limit.
+The training phases also print each precision's useful TFLOP/s
+(utils/flops.train_step_flops) and its share of the card's dense peak at
+that precision (`mfu`: bf16 989.4, TF32 494.7 TFLOP/s, H100 SXM).
 Each phase prints the seconds it took. K1's launches in the kernels line are
 those of the serving, fused, server and sat phases, each read with the
 counter set to 0 just before the path runs and read just after; its bf16
 form's those of the bf16 phase, and K2's those of both precisions' training
 steps of both variants, of both runs and their resumes, of both ranks' runs
-and the resume in the ddp phase, of the adapt run and of the options
-model's training steps.
+and the resume in the ddp phase, of the adapt run, of the options
+model's training steps, and of the dry-run and entry() in the tp phase.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -189,6 +214,7 @@ exits 2 and prints no result.
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import os
 import signal
@@ -202,6 +228,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 INT8_PEAK = 1979e12   # H100 SXM dense int8 ops/s (NVIDIA data sheet)
+# H100 SXM dense FLOP/s (NVIDIA data sheet): the training step's `mfu`
+# divides its useful FLOP/s (utils/flops.py) by the peak of its precision
+BF16_PEAK, TF32_PEAK, FP32_PEAK = 989.4e12, 494.7e12, 66.9e12
 HBM_BW = 3.35e12      # H100 SXM HBM3 bytes/s
 SEED = 1234
 TRAIN_B, TRAIN_TX, TRAIN_TY = 16, 96, 400  # bench_train.py's batch
@@ -578,6 +607,7 @@ def phase_training(dev, variant="mel", mel_med=None):
     from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
                                            build_step, count_params, init_state)
     from vits_tpu_torch.train.step import TrainStepConfig
+    from vits_tpu_torch.utils.flops import train_step_flops
 
     tag = "[training]" if variant == "mel" else "[training_stft]"
     hps = get_hparams_from_file(default_config_path("base"))
@@ -677,6 +707,18 @@ def phase_training(dev, variant="mel", mel_med=None):
             f"({audio_s:.2f} audio s per step); peak memory {run['peak']:.2f} GiB with both "
             f"states resident, the step's own {run['resident'] + run['work']:.2f} GiB (its "
             f"state {run['resident']:.2f} + the step's working memory {run['work']:.2f})")
+    useful = train_step_flops(synth, disc, TrainStepConfig.from_hps(hps, variant=variant),
+                              B, T_x, T_y)
+    card = card_line()
+    for name, peak, prec in (("fp32", TF32_PEAK, "TF32"), ("bf16", BF16_PEAK, "bf16")):
+        rate = useful / (med[name] / 1e3)
+        log(f"{tag} {name}: useful work {useful / 1e12:.4f} TFLOP a step "
+            f"(utils/flops.train_step_flops at B {B}, T_x {T_x}, T_y {T_y}), "
+            f"{rate / 1e12:.2f} TFLOP/s, mfu {100 * rate / peak:.2f}% of the dense {prec} "
+            f"peak {peak / 1e12:.1f} TFLOP/s (H100 SXM, NVIDIA data sheet; {card})"
+            + ("" if name == "bf16" else
+               f"; TF32 is off in this run, so also {100 * rate / FP32_PEAK:.2f}% of the "
+               f"{FP32_PEAK / 1e12:.1f} TFLOP/s FP32 peak"))
     log(f"{tag} bf16 against fp32, in turns: median {med['bf16']:.1f} against "
         f"{med['fp32']:.1f} ms ({med['fp32'] / med['bf16']:.2f}x); K2 launches on the main "
         f"path {main_launches} in {2 * (1 + TRAIN_STEPS)} steps")
@@ -801,22 +843,6 @@ def _k2_calls_exact(dev, calls, launches):
     return err, shapes
 
 
-def _recording_k2(calls):
-    """Swap K2's wrapper for one that records each launch's inputs and path
-    on the host (non-blocking copies into pinned memory: no sync, no device
-    memory held). Returns the wrapper to put back."""
-    from vits_tpu_torch.ops import mas
-    kernel = mas.maximum_path_cuda
-
-    def recording(neg, t_ys, t_xs):
-        path = kernel(neg, t_ys, t_xs)
-        calls.append(tuple(t.to("cpu", non_blocking=True) for t in (neg, t_ys, t_xs, path)))
-        return path
-
-    mas.maximum_path_cuda = recording
-    return kernel
-
-
 def _run_mas_equal_plain(dev, calls, launches, tag="[run]") -> float:
     """The run's K2 launches against the plain search (`_k2_calls_exact`),
     then each distinct shape's plan and device time. Launches made here are
@@ -910,44 +936,43 @@ def phase_run(dev, workdir, variant="mel"):
 
     for k in timed:
         setattr(loop, k, timing(k))
-    kernel = _recording_k2(k2_calls)
     try:
-        state, steps, launches_run, seen, wall, peak = drive(RUN_STEPS)
-        if steps != RUN_STEPS or state["step"] != RUN_STEPS or launches_run != RUN_STEPS:
-            raise RuntimeError(f"the run took {steps} steps (state {state['step']}), K2 "
-                               f"launched {launches_run} times; expected {RUN_STEPS} each")
-        window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
-        loop_ms = float(np.median(window))
-        for _, s, m in seen:
-            log(f"{tag} step {s}: loss_g_total {m['loss_g_total']:.4f}, loss_disc "
-                f"{m['loss_disc']:.4f}, loss_disc_p {m['loss_disc_p']:.4f}, loss_gen_p "
-                f"{m['loss_gen_p']:.4f}, grad_norm_p {m['grad_norm_p']:.4f}; "
-                f"{m['audio_sec_per_s']:.1f} audio-s/s, input stall "
-                f"{m['input_stall_pct']:.2f}% over its {RUN_LOG_INTERVAL} steps")
-        leaves = _checkpoint_equals_state(hps.model_dir, state, RUN_STEPS)
-        opts = "AdamW" if variant == "mel" else "AdamW for G, RAdam for D and P, and u"
-        log(f"{tag} {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
-            f"included), K2 launches {launches_run}; step ms by window after the first "
-            f"{[round(w, 1) for w in window]}, median {loop_ms:.1f}; eval "
-            f"{timed['evaluate'][0]:.2f} s, save (G, D, P with {opts} state) "
-            f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{RUN_STEPS}.npz "
-            f"read back equal to the live state ({leaves} leaves)")
-        del state
-        torch.cuda.empty_cache()
+        with mas.recorded(k2_calls):
+            state, steps, launches_run, seen, wall, peak = drive(RUN_STEPS)
+            if steps != RUN_STEPS or state["step"] != RUN_STEPS or launches_run != RUN_STEPS:
+                raise RuntimeError(f"the run took {steps} steps (state {state['step']}), K2 "
+                                   f"launched {launches_run} times; expected {RUN_STEPS} each")
+            window = [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])]
+            loop_ms = float(np.median(window))
+            for _, s, m in seen:
+                log(f"{tag} step {s}: loss_g_total {m['loss_g_total']:.4f}, loss_disc "
+                    f"{m['loss_disc']:.4f}, loss_disc_p {m['loss_disc_p']:.4f}, loss_gen_p "
+                    f"{m['loss_gen_p']:.4f}, grad_norm_p {m['grad_norm_p']:.4f}; "
+                    f"{m['audio_sec_per_s']:.1f} audio-s/s, input stall "
+                    f"{m['input_stall_pct']:.2f}% over its {RUN_LOG_INTERVAL} steps")
+            leaves = _checkpoint_equals_state(hps.model_dir, state, RUN_STEPS)
+            opts = "AdamW" if variant == "mel" else "AdamW for G, RAdam for D and P, and u"
+            log(f"{tag} {steps} steps in {wall:.1f} s (the run's build, data, eval and save "
+                f"included), K2 launches {launches_run}; step ms by window after the first "
+                f"{[round(w, 1) for w in window]}, median {loop_ms:.1f}; eval "
+                f"{timed['evaluate'][0]:.2f} s, save (G, D, P with {opts} state) "
+                f"{timed['save_all'][0]:.2f} s; peak memory {peak:.2f} GiB; G/D/P_{RUN_STEPS}.npz "
+                f"read back equal to the live state ({leaves} leaves)")
+            del state
+            torch.cuda.empty_cache()
 
-        state, steps, launches, seen_r, wall, _ = drive(RUN_STEPS + RUN_RESUME)
-        if steps != RUN_STEPS + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
-            raise RuntimeError(f"the resume ended at step {steps} (state {state['step']}) with "
-                               f"{launches} K2 launches; expected step "
-                               f"{RUN_STEPS + RUN_RESUME}, {RUN_RESUME} launches")
-        log(f"{tag} resumed at step {RUN_STEPS}, ended at {steps} in {wall:.1f} s (build, "
-            f"load and save included), K2 launches {launches}; step {seen_r[-1][1]} "
-            f"loss_g_total {seen_r[-1][2]['loss_g_total']:.4f}, loss_disc_p "
-            f"{seen_r[-1][2]['loss_disc_p']:.4f}; save {timed['save_all'][-1]:.2f} s")
+            state, steps, launches, seen_r, wall, _ = drive(RUN_STEPS + RUN_RESUME)
+            if steps != RUN_STEPS + RUN_RESUME or state["step"] != steps or launches != RUN_RESUME:
+                raise RuntimeError(f"the resume ended at step {steps} (state {state['step']}) "
+                                   f"with {launches} K2 launches; expected step "
+                                   f"{RUN_STEPS + RUN_RESUME}, {RUN_RESUME} launches")
+            log(f"{tag} resumed at step {RUN_STEPS}, ended at {steps} in {wall:.1f} s (build, "
+                f"load and save included), K2 launches {launches}; step {seen_r[-1][1]} "
+                f"loss_g_total {seen_r[-1][2]['loss_g_total']:.4f}, loss_disc_p "
+                f"{seen_r[-1][2]['loss_disc_p']:.4f}; save {timed['save_all'][-1]:.2f} s")
     finally:
         for k, fn in real.items():
             setattr(loop, k, fn)
-        mas.maximum_path_cuda = kernel
     run_launches = launches_run + launches
     mas_err = _run_mas_equal_plain(dev, k2_calls, run_launches, tag)
 
@@ -1115,12 +1140,9 @@ def _ddp_compare_steps(dev, world, group, rank, runs):
             b, n = ({k: v.double() if v.is_floating_point() else v for k, v in d.items()}
                     for d in (batch, noise))
         calls = []
-        kernel = _recording_k2(calls)
-        try:
-            with torch.backends.cudnn.flags(enabled=cudnn, allow_tf32=False):
-                _, m = steps[prec](state, b, n, lr, lr, 0.01)
-        finally:
-            mas.maximum_path_cuda = kernel
+        with mas.recorded(calls), torch.backends.cudnn.flags(enabled=cudnn,
+                                                             allow_tf32=False):
+            _, m = steps[prec](state, b, n, lr, lr, 0.01)
         shares = dist.allreduce_metrics({k: v for k, v in m.items() if k.startswith("loss")},
                                         group)
         grads = {key: {n: p.grad.detach().cpu() for n, p in state[key].named_parameters()}
@@ -1231,34 +1253,34 @@ def ddp_rank(job_path: str) -> int:
     dist.allreduce_grads = timed_reduce
     for name in counts:
         setattr(loop, name, counted(name))
-    _recording_k2(calls)
-    for argv in job["runs"]:
-        hps = get_hparams(argv)
-        seen = []
-        reductions.clear()
-        calls.clear()
-        counts.update(save_all=0, evaluate=0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mas.counter.launches = 0                          # main path starts here
-        state, steps = loop.run(hps, variant="mel", device=hps.device,
-                                log_cb=lambda s, m: seen.append((time.perf_counter(), s, m)))
-        torch.cuda.synchronize()
-        launches = mas.counter.launches                   # main path ends here
-        err, _ = _k2_calls_exact(info.device, calls, launches)
-        per_step = len(reductions) // steps
-        reduce_ms = [sum(a.elapsed_time(b) for a, b in reductions[i:i + per_step])
-                     for i in range(0, len(reductions), per_step)]
-        out["runs"].append({
-            "name": argv[1], "steps": steps, "launches": launches, "k2_err": err,
-            "digest": dist.state_digest(state), "counts": dict(counts),
-            "step_ms": [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])],
-            "reductions_per_step": per_step, "reduce_ms": reduce_ms,
-            "audio_s_per_s": [m["audio_sec_per_s"] for _, _, m in seen[1:]],
-            "losses": {k: v for k, v in seen[-1][2].items() if k.startswith("loss")},
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
-        del state
-        torch.cuda.empty_cache()
+    with mas.recorded(calls):
+        for argv in job["runs"]:
+            hps = get_hparams(argv)
+            seen = []
+            reductions.clear()
+            calls.clear()
+            counts.update(save_all=0, evaluate=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mas.counter.launches = 0                          # main path starts here
+            state, steps = loop.run(hps, variant="mel", device=hps.device,
+                                    log_cb=lambda s, m: seen.append((time.perf_counter(), s, m)))
+            torch.cuda.synchronize()
+            launches = mas.counter.launches                   # main path ends here
+            err, _ = _k2_calls_exact(info.device, calls, launches)
+            per_step = len(reductions) // steps
+            reduce_ms = [sum(a.elapsed_time(b) for a, b in reductions[i:i + per_step])
+                         for i in range(0, len(reductions), per_step)]
+            out["runs"].append({
+                "name": argv[1], "steps": steps, "launches": launches, "k2_err": err,
+                "digest": dist.state_digest(state), "counts": dict(counts),
+                "step_ms": [(b[0] - a[0]) * 1e3 / (b[1] - a[1]) for a, b in zip(seen, seen[1:])],
+                "reductions_per_step": per_step, "reduce_ms": reduce_ms,
+                "audio_s_per_s": [m["audio_sec_per_s"] for _, _, m in seen[1:]],
+                "losses": {k: v for k, v in seen[-1][2].items() if k.startswith("loss")},
+                "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+            del state
+            torch.cuda.empty_cache()
     dist.shutdown()
     with open(job["out"].format(rank=info.rank), "w") as f:
         json.dump(out, f)
@@ -1407,16 +1429,12 @@ def phase_ddp(dev, workdir):
     # the bf16 run's checkpoints (rank 0's) resumed in one process for a step
     hps = get_hparams_from_dir(os.path.join(workdir, "logs", runs[-1][1]))
     hps.use_dur_dis = True
-    calls = []
-    kernel = _recording_k2(calls)
-    try:
+    with mas.recorded([]) as calls:
         torch.cuda.synchronize()
         mas.counter.launches = 0                          # main path starts here
         state, steps = loop.run(hps, max_steps=DDP_STEPS + 1, device=dev)
         torch.cuda.synchronize()
         resumed = mas.counter.launches                    # main path ends here
-    finally:
-        mas.maximum_path_cuda = kernel
     err = max(err, _k2_calls_exact(dev, calls, resumed)[0])
     with open(os.path.join(hps.model_dir, "train.log")) as f:
         log_text = f.read()
@@ -2273,12 +2291,6 @@ def phase_sat(dev, workdir):
     # run_adapt, its parts timed, every K2 launch recorded
     timed, seen, k2_calls = {}, [], []
     real = {"prep": sat_mod.prepare_speaker_data, "train": loop.run, "export": export_mod.main}
-    kernel = mas.maximum_path_cuda
-
-    def recording(neg, t_ys, t_xs):
-        path = kernel(neg, t_ys, t_xs)
-        k2_calls.append(tuple(t.to("cpu", non_blocking=True) for t in (neg, t_ys, t_xs, path)))
-        return path
 
     def timing(name, fn):
         def call(*a, **k):
@@ -2298,21 +2310,20 @@ def phase_sat(dev, workdir):
     sat_mod.prepare_speaker_data = timing("prep", real["prep"])
     loop.run = timing("train", train_logged)
     export_mod.main = timing("export", real["export"])
-    mas.maximum_path_cuda = recording
     try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        mas.counter.launches = 0                          # main path starts here
-        start = time.perf_counter()
-        mapping = sat_mod.run_adapt(sat_dir, out, max_steps=SAT_STEPS, device=dev)
-        torch.cuda.synchronize()
-        k2_launches = mas.counter.launches                # main path ends here
-        wall = time.perf_counter() - start
+        with mas.recorded(k2_calls):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            mas.counter.launches = 0                          # main path starts here
+            start = time.perf_counter()
+            mapping = sat_mod.run_adapt(sat_dir, out, max_steps=SAT_STEPS, device=dev)
+            torch.cuda.synchronize()
+            k2_launches = mas.counter.launches                # main path ends here
+            wall = time.perf_counter() - start
     finally:
         sat_mod.prepare_speaker_data = real["prep"]
         loop.run = real["train"]
         export_mod.main = real["export"]
-        mas.maximum_path_cuda = kernel
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want_map = {str(s): 1023 - i for i, s in enumerate(SAT_SPEAKERS)}
     bad = [(s, k) for _, s, mt in seen for k, v in mt.items() if not np.isfinite(v)]
@@ -2760,9 +2771,8 @@ def phase_options(dev, workdir, rb2_ckpt):
     batch = _bench_batch(hps, dev, B, T_x, T_y)
     noise_gen = torch.Generator(device=dev).manual_seed(SEED)
     lr = hps.train.learning_rate
-    calls, times = [], []
-    kernel = _recording_k2(calls)
-    try:
+    times = []
+    with mas.recorded([]) as calls:
         torch.cuda.synchronize()
         mas.counter.launches = 0                          # main path starts here
         for i in range(1 + OPT_STEPS):
@@ -2776,8 +2786,6 @@ def phase_options(dev, workdir, rb2_ckpt):
                 raise RuntimeError(f"[options] step {i}: losses "
                                    f"{ {k: float(v) for k, v in metrics.items() if v.ndim == 0} }")
         launches = mas.counter.launches                   # main path ends here
-    finally:
-        mas.maximum_path_cuda = kernel
     if launches != 1 + OPT_STEPS:
         raise RuntimeError(f"[options] K2 launched {launches} times in {1 + OPT_STEPS} steps")
     mas_err, _ = _k2_calls_exact(dev, calls, launches)
@@ -2803,6 +2811,302 @@ def phase_options(dev, workdir, rb2_ckpt):
     del serving
     torch.cuda.empty_cache()
     return launches, mas_err, evals, float(np.median(times[1:]))
+
+
+TP_RANKS = 2             # [tp]: the model axis of the sharded decode, the ranks sharing one card
+TP_SHAPES = ((48, 384), (125, 1000))  # (T_x, T_y): [onnx]'s p2 shape and a ~1000-frame request
+TP_ITERS = 3             # timed sharded and one-process p2 calls a shape, after one warm-up each
+TP_TIMEOUT = 300         # the torchrun launch's seconds
+# the sharded decode against the one-process infer_p2 on the card, fp32 with
+# TF32 off: [onnx]'s tolerance (cuDNN picks its algorithms per output width,
+# and a sharded conv computes half or a quarter of the channels)
+TP_ATOL, TP_RTOL = 2e-4, 2e-3
+# the base config's decoder in the JAX layout of the training tree: all its
+# parameters, and the 57 kernels the rule splits at min_channels 128; the
+# biases of those layers, which the port's sharded layers split too
+TP_DEC_PARAMS, TP_DEC_SHARDED, TP_DEC_SPLIT_BIAS = 15_896_512, 14_458_880, 11_264
+
+
+def _tp_inputs(synth, dev, t_x, t_y, seed):
+    """One request's infer_p2 arguments at (t_x tokens, t_y frames): a seeded
+    text, emotion and speaker through infer_p1, t_y / t_x frames a token."""
+    from vits_tpu_torch.ops.seq import infer_path
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(1, t_x, synth.enc_p.emb["0"].in_features)
+                         .astype(np.float32)).to(dev)
+    emo = torch.from_numpy(rng.randn(1, 1024).astype(np.float32)).to(dev)
+    sid = torch.tensor([int(rng.randint(0, synth.emb_g.weight.shape[0]))], device=dev)
+    m_p, s_p, _, g = synth.infer_p1(x, emo, sid)
+    attn = infer_path(torch.full((1, t_x), float(t_y // t_x), device=dev), t_y)
+    noise = torch.from_numpy((0.667 * rng.randn(1, t_y, synth.inter_channels))
+                             .astype(np.float32)).to(dev)
+    return [t.contiguous() for t in (attn, m_p, s_p, g, noise)]  # broadcast sends the storage
+
+
+def tp_rank(job_path: str) -> int:
+    """One rank of the [tp] phase's sharded decode, as torchrun starts it
+    (`chip_smoke.py --tp-rank job.json`): the process group from torchrun's
+    environment (`dist.init_distributed`, the backend by its rule), a
+    (world // model, model) mesh (`make_mesh`), the base config's seeded
+    weight-normed training synthesizer (the same on every rank),
+    `shard_generator_params` of its state (the JAX layout a rank holds) and
+    `make_tp_infer` of it (folded, then sliced). At each of TP_SHAPES
+    (rank 0's infer_p1 inputs broadcast to every rank): one warm-up and
+    TP_ITERS timed sharded calls, each gather timed with CUDA events; rank 0
+    then times the one-process infer_p2 of the serving synthesizer (the same
+    weights folded) on the same inputs. Writes this rank's numbers and
+    outputs."""
+    with open(job_path) as f:
+        job = json.load(f)
+    sys.path.insert(0, ROOT)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as tdist
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.convert import params_from_jax, params_to_jax
+    from vits_tpu_torch.models.synthesizer import Synthesizer
+    from vits_tpu_torch.nn.core import init_weights
+    from vits_tpu_torch.parallel import dist
+    from vits_tpu_torch.parallel.mesh import make_mesh, make_tp_infer, shard_generator_params
+
+    info = dist.init_distributed(job["device"])
+    dev = info.device
+    hps = get_hparams_from_file(default_config_path("base"))
+    train = init_weights(Synthesizer.from_hps(hps, train=True),
+                         torch.Generator().manual_seed(SEED + 41)).eval()
+    mesh = make_mesh(data=info.world // job["model"], model=job["model"], device=job["device"])
+    held = shard_generator_params(mesh, train.state_dict())
+    out = {"rank": info.rank, "world": info.world, "device": str(dev),
+           "backend": mesh.backend, "at": [mesh.data_index, mesh.model_index],
+           "jax_layout_params": sum(t.numel() for k, t in held.items() if k.startswith("dec.")),
+           "shapes": []}
+    del held
+    serving = None
+    if info.rank == 0:  # the one-process reference, on the card once the rank is measured
+        serving = params_from_jax(params_to_jax(train.state_dict()),
+                                  Synthesizer.from_hps(hps)).eval()
+        out["whole_dec_params"] = sum(p.numel() for p in serving.dec.parameters())
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    tp = make_tp_infer(train.to(dev), mesh, "p2")
+    torch.cuda.synchronize(dev)
+    out["build_s"] = time.perf_counter() - t0
+    # what the rank holds on the card: the training synthesizer, its decoder
+    # now the sharded one (make_tp_infer replaced train.dec)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dec = [p for n, p in train.named_parameters() if n.startswith("dec.")]
+    out["held_params"] = sum(p.numel() for p in dec)
+    out["held_bytes"] = sum(p.numel() * p.element_size() for p in dec)
+    out["synth_bytes"] = sum(t.numel() * t.element_size()
+                             for t in [*train.parameters(), *train.buffers()])
+    out["allocated"] = torch.cuda.memory_allocated(dev)  # in the allocator's blocks
+    out["requested"] = torch.cuda.memory_stats(dev)["requested_bytes.all.current"]
+    out["sharded"] = len(tp.dec.sharded)
+    if serving is not None:
+        serving.to(dev)
+    events = []
+    real_gather = mesh.gather
+
+    def timed_gather(y):
+        ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        ev[0].record()
+        full = real_gather(y)
+        ev[1].record()
+        events.append((ev, full.numel() * full.element_size()))
+        return full
+
+    mesh.gather = timed_gather
+    arrays = {}
+    for i, (t_x, t_y) in enumerate(TP_SHAPES):
+        c, gin = hps.model.inter_channels, hps.model.gin_channels
+        with torch.no_grad():
+            args = (_tp_inputs(serving, dev, t_x, t_y, SEED + 42 + i) if info.rank == 0 else
+                    [torch.empty(s, device=dev) for s in
+                     ((1, t_y, t_x), (1, t_x, c), (1, t_x, c), (1, gin), (1, t_y, c))])
+        for a in args:
+            tdist.broadcast(a, 0)
+        rec = {"t_x": t_x, "t_y": t_y, "ms": [], "gather_ms": [], "ref_ms": []}
+        tp(*args)
+        for _ in range(TP_ITERS):
+            tdist.barrier()
+            events.clear()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            wav = tp(*args)
+            torch.cuda.synchronize(dev)
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["gather_ms"].append(sum(a.elapsed_time(b) for (a, b), _ in events))
+        rec["gathers"] = len(events)
+        rec["gather_bytes"] = sum(n for _, n in events)
+        arrays[f"tp_{i}"] = wav.cpu().numpy()
+        tdist.barrier()
+        if info.rank == 0:
+            with torch.inference_mode():
+                serving.infer_p2(*args)
+                for _ in range(TP_ITERS):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    ref = serving.infer_p2(*args)
+                    torch.cuda.synchronize(dev)
+                    rec["ref_ms"].append((time.perf_counter() - t0) * 1e3)
+            arrays[f"ref_{i}"] = ref.cpu().numpy()
+        tdist.barrier()
+        out["shapes"].append(rec)
+    dist.shutdown()
+    np.savez(job["out"].format(rank=info.rank) + ".npz", **arrays)
+    with open(job["out"].format(rank=info.rank), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def tp_sharded(workdir, ranks: int = TP_RANKS, model: int = TP_RANKS):
+    """(a) of the [tp] phase: `ranks` ranks by `python -m
+    torch.distributed.run --nproc_per_node ranks chip_smoke.py --tp-rank`
+    (`tp_rank`), the decoder split over `model` of them at the base
+    config's full width (min_channels 128): NCCL where the host has a card
+    a rank, else gloo with the ranks sharing cuda:0. Each shape's sharded
+    infer_p2 is held against the one-process infer_p2 within TP_ATOL +
+    TP_RTOL |ref|, the ranks' outputs equal; every rank holds the expected
+    decoder parameters."""
+    card = card_line()
+    job = os.path.join(workdir, "tp_job.json")
+    with open(job, "w") as f:
+        json.dump({"device": "cuda", "model": model,
+                   "out": os.path.join(workdir, "tp_rank{rank}.json")}, f)
+    start = time.perf_counter()
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "4"}
+    rc, stdout, stderr = _run_group(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         str(ranks), os.path.join(ROOT, "chip_smoke.py"), "--tp-rank", job],
+        TP_TIMEOUT, cwd=workdir, env=env)
+    launch_s = time.perf_counter() - start
+    if rc != 0:
+        raise RuntimeError(f"torchrun exited {rc}:\n{stdout[-3000:]}\n{stderr[-6000:]}")
+    rr, arrays = [], []
+    for r in range(ranks):
+        path = os.path.join(workdir, f"tp_rank{r}.json")
+        with open(path) as f:
+            rr.append(json.load(f))
+        arrays.append(dict(np.load(path + ".npz")))
+    r0 = rr[0]
+    scale = ("not a scaling figure: the ranks share one card over gloo"
+             if r0["backend"] == "gloo" and torch.cuda.device_count() < ranks
+             else f"{ranks} cards over {r0['backend']}")
+    want = TP_DEC_PARAMS - TP_DEC_SHARDED + TP_DEC_SHARDED // model
+    log(f"[tp] `python -m torch.distributed.run --nproc_per_node {ranks}` exit 0 in "
+        f"{launch_s:.1f} s; mesh ({ranks // model}, {model}), backend {r0['backend']}, rank "
+        f"devices {[r['device'] for r in rr]}; {r0['sharded']} decoder kernels split "
+        f"(min_channels 128), each layer's output channels gathered by one all_gather of "
+        f"CUDA tensors over {r0['backend']}")
+    whole = r0["whole_dec_params"]
+    for r in rr:
+        if r["jax_layout_params"] != want or r["sharded"] != 57:
+            raise RuntimeError(f"[tp] rank {r['rank']} holds {r['jax_layout_params']} decoder "
+                               f"parameters of the training tree ({r['sharded']} kernels "
+                               f"split), expected {want} (57)")
+        split = TP_DEC_SHARDED + TP_DEC_SPLIT_BIAS
+        if r["held_params"] != whole - split + split // model:
+            raise RuntimeError(f"[tp] rank {r['rank']}'s synthesizer holds "
+                               f"{r['held_params']} decoder parameters, not its slices of the "
+                               f"{whole} of the folded decoder")
+        # nothing but the synthesizer's own tensors is left on the card (a
+        # whole decoder kept beside the slices would add ~60 MiB)
+        if r["requested"] > r["synth_bytes"] + 2 ** 20:
+            raise RuntimeError(f"[tp] rank {r['rank']} holds {r['requested']} bytes of tensors "
+                               f"on the card against its synthesizer's {r['synth_bytes']}")
+        log(f"[tp] rank {r['rank']} at {tuple(r['at'])}: decoder parameters in the JAX layout "
+            f"of the training tree (shard_generator_params: v sliced, g whole) "
+            f"{r['jax_layout_params']:,} of {TP_DEC_PARAMS:,} "
+            f"({100 * r['jax_layout_params'] / TP_DEC_PARAMS:.1f}%); the folded sharded "
+            f"decoder it serves from {r['held_params']:,} of the one-process decoder's "
+            f"{whole:,} parameters ({100 * r['held_params'] / whole:.1f}%, "
+            f"{r['held_bytes'] / 2 ** 20:.1f} MiB); on the card after sharding the rank's "
+            f"tensors take {r['requested'] / 2 ** 20:.2f} MiB ({r['allocated'] / 2 ** 20:.2f} "
+            f"MiB in the allocator's blocks), its whole training synthesizer "
+            f"{r['synth_bytes'] / 2 ** 20:.2f} MiB; built in {r['build_s']:.2f} s")
+    errs = []
+    for i, (t_x, t_y) in enumerate(TP_SHAPES):
+        ref = arrays[0][f"ref_{i}"]
+        outs = [a[f"tp_{i}"] for a in arrays]
+        if not all(np.array_equal(o, outs[0]) for o in outs[1:]):
+            raise RuntimeError(f"[tp] ({t_x}, {t_y}): the ranks' outputs differ")
+        if outs[0].shape != ref.shape or not np.all(np.isfinite(outs[0])):
+            raise RuntimeError(f"[tp] ({t_x}, {t_y}): shape {outs[0].shape} against "
+                               f"{ref.shape}, finite {np.all(np.isfinite(outs[0]))}")
+        diff = np.abs(outs[0].astype(np.float64) - ref)
+        err = float(diff.max())
+        ratio = float((diff / (TP_ATOL + TP_RTOL * np.abs(ref))).max())
+        errs.append(err)
+        rec = [r["shapes"][i] for r in rr]
+        ms, ref_ms = float(np.median(rec[0]["ms"])), float(np.median(rec[0]["ref_ms"]))
+        log(f"[tp] infer_p2 at (T_x {t_x}, T_y {t_y}) -> {ref.shape[1]} samples, decoder split "
+            f"over {model} ranks: equal on every rank; against the one-process infer_p2 on "
+            f"the card (fp32, TF32 off): max_abs_err {err:.3e}, {ratio:.3f} of atol "
+            f"{TP_ATOL:.0e} + rtol {TP_RTOL:.0e} |ref| (bound 1)")
+        if ratio > 1.0:
+            raise RuntimeError(f"[tp] ({t_x}, {t_y}): outside the tolerance ({ratio:.3f})")
+        for r, x in zip(rr, rec):
+            log(f"[tp]   rank {r['rank']} ({card}): sharded p2 ms "
+                f"{[round(v, 2) for v in x['ms']]} (median {float(np.median(x['ms'])):.2f}), of "
+                f"which {x['gathers']} gathers of {x['gather_bytes'] / 2 ** 20:.1f} MiB "
+                f"(full tensors) took {[round(v, 2) for v in x['gather_ms']]} ms by CUDA "
+                f"events")
+        log(f"[tp]   one-process p2 on rank 0's card: {[round(v, 2) for v in rec[0]['ref_ms']]} "
+            f"ms (median {ref_ms:.2f}); sharded / one-process {ms / ref_ms:.2f}x; {scale}")
+    return max(errs)
+
+
+def phase_tp(dev, workdir):
+    """Tensor parallelism and the graft entry points on the card: (a)
+    `tp_sharded` at the base config's full width, TP_RANKS ranks; (b)
+    `graft_entry.dryrun_multichip(2)` (TINY data-parallel mel and stft
+    steps and a tensor-parallel decode, its ranks started by the function);
+    (c) `graft_entry.entry()` once, the base config's training forward.
+    Every K2 launch of (b) and (c) is held bit-exact against the plain
+    search. Returns (K2 launches of (b) and (c), the largest difference)."""
+    from vits_tpu_torch import graft_entry
+    from vits_tpu_torch.ops import mas
+
+    tp_sharded(workdir)
+
+    t0 = time.perf_counter()
+    res = graft_entry.dryrun_multichip(2)
+    calls = [c for r in res for c in r["k2_calls"]]
+    launches = sum(r["k2_launches"] for r in res)
+    err, shapes = _k2_calls_exact(dev, calls, launches)
+    if launches != 2 * len(res):
+        raise RuntimeError(f"[tp] the dry-run's ranks launched K2 "
+                           f"{[r['k2_launches'] for r in res]} times, expected 2 each")
+    log(f"[tp] dryrun_multichip(2) on the card in {time.perf_counter() - t0:.1f} s: rank "
+        f"devices {[r['device'] for r in res]}, backend {res[0]['backend']}, losses equal on "
+        f"the ranks (mel {res[0]['loss_mel']:.4f}, stft {res[0]['loss_stft']:.4f}), TP wav "
+        f"{tuple(res[0]['wav'].shape)} equal on the ranks "
+        f"{all(torch.equal(r['wav'], res[0]['wav']) for r in res)}; K2 launches "
+        f"{[r['k2_launches'] for r in res]} at {sorted(shapes)}, bit-exact against the plain "
+        f"search (max_abs_err {err:.1e})")
+    if not all(torch.equal(r["wav"], res[0]["wav"]) for r in res):
+        raise RuntimeError("[tp] the dry-run's ranks decoded different waveforms")
+
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    with mas.recorded([]) as calls:
+        torch.cuda.synchronize()
+        mas.counter.launches = 0                          # main path starts here
+        y_hat, l_length, z_p = fn(*args)
+        torch.cuda.synchronize()
+        entry_launches = mas.counter.launches             # main path ends here
+    e_err, _ = _k2_calls_exact(dev, calls, entry_launches)
+    finite = all(bool(torch.isfinite(t).all()) for t in (y_hat, l_length, z_p))
+    if entry_launches != 1 or not finite:
+        raise RuntimeError(f"[tp] entry(): K2 launched {entry_launches} times, finite {finite}")
+    log(f"[tp] graft_entry.entry() on the card in {time.perf_counter() - t0:.1f} s (the base "
+        f"config's training forward at B 2, T_x 48, T_y 192): y_hat {tuple(y_hat.shape)}, "
+        f"l_length {[round(v, 4) for v in l_length.tolist()]}, z_p {tuple(z_p.shape)}, finite; "
+        f"K2 launches {entry_launches}, bit-exact (max_abs_err {e_err:.1e})")
+    del fn, args, y_hat, z_p
+    torch.cuda.empty_cache()
+    return launches + entry_launches, max(err, e_err)
 
 
 def card_line() -> str:
@@ -2878,6 +3182,9 @@ def main() -> int:
         opt_k2, opt_mas_err, _, _ = phase("options", phase_options, dev, workdir, rb2_ckpt)
     if opt_k2 <= 0:
         raise RuntimeError("the options model's training step launched K2 no time")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        tp_k2, tp_mas_err = phase("tp", phase_tp, dev, workdir)
     card = card_line()
     main = mas_rows[0]  # the shape the training step gives K2
     kernels = {"kernels": [{
@@ -2910,9 +3217,9 @@ def main() -> int:
         "source": "vits_tpu_torch/csrc/mas.cu",
         "replaces": "vits_tpu/ops/mas.py:130",
         "launches": (mas_launches + stft_launches + run_launches + run_stft_launches
-                     + ddp_launches + sat_k2 + opt_k2),
+                     + ddp_launches + sat_k2 + opt_k2 + tp_k2),
         "max_abs_err": max(mas_err, run_mas_err, run_stft_mas_err, ddp_mas_err, sat_mas_err,
-                           opt_mas_err),
+                           opt_mas_err, tp_mas_err),
         "ms": main["ms"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
@@ -2923,7 +3230,7 @@ def main() -> int:
         f"serving {launches}, fused {fused_launches}, servers {server_launches}, sat "
         f"{sat_k1}, bf16 form {bf16_launches}; K2 launches: training {mas_launches}, "
         f"training_stft {stft_launches}, run {run_launches}, run_stft {run_stft_launches}, "
-        f"ddp {ddp_launches}, sat {sat_k2}, options {opt_k2}; phases: "
+        f"ddp {ddp_launches}, sat {sat_k2}, options {opt_k2}, tp {tp_k2}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))
     print(json.dumps(kernels), flush=True)
     print(card, flush=True)
@@ -2936,4 +3243,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-rank"]:
+        sys.exit(tp_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,7 +1,16 @@
 #!/usr/bin/env python3
-"""Data-parallel training of the PyTorch/CUDA port across the host's cards.
+"""Data-parallel training and the tensor-parallel decoder of the PyTorch/CUDA
+port across the host's cards.
 
     python3 scripts/ddp_cards.py [--ranks 4,2]
+    python3 scripts/ddp_cards.py --tp 4
+
+With --tp N (and no --ranks) it runs chip_smoke.py's `[tp]` sharded decode
+(`tp_sharded`) instead, on N ranks with the decoder split over all N (NCCL,
+one rank a card, where the host has N cards): the base config at full width,
+infer_p2 at (T_x 48, T_y 384) and (125, 1000) against the one-process
+infer_p2 (atol 2e-4, rtol 2e-3), the ranks' outputs equal, each rank's
+decoder parameters, the sharded and one-process ms and the gathers' ms.
 
 Runs chip_smoke.py's `[ddp]` phase once for each rank count of --ranks
 (default: one rank a card): the K2 kernel built, then torchrun's ranks
@@ -37,6 +46,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ranks", default=None,
                     help="comma-separated rank counts (default: the host's card count)")
+    ap.add_argument("--tp", default=None,
+                    help="comma-separated rank counts of the tensor-parallel decode")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("ddp_cards: no CUDA device is available", file=sys.stderr)
@@ -46,6 +57,14 @@ def main() -> int:
     counts = ([int(r) for r in args.ranks.split(",")] if args.ranks
               else [torch.cuda.device_count()])
     cs.log(f"[cards] {cs.card_line()} x {torch.cuda.device_count()}")
+    for ranks in [int(r) for r in args.tp.split(",")] if args.tp else []:
+        start = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            err = cs.tp_sharded(workdir, ranks, ranks)
+        cs.log(f"[cards] tp over {ranks} ranks: {time.perf_counter() - start:.1f} s, "
+               f"max_abs_err {err:.3e}")
+    if args.tp and not args.ranks:
+        return 0
     cs.phase_build()
     dev = torch.device("cuda", 0)
     for ranks in counts:

@@ -40,11 +40,30 @@ def test_import_loads_no_jax_and_no_vits_tpu():
             "deploy = {'vits_tpu_torch.' + m for m in ('export', 'sat', 'serve.aot',\n"
             "          'serve.sat_api', 'toolkits.trim_sil', 'toolkits.cluster_emotion',\n"
             "          'toolkits.extract_emotion')}\n"
-            "missing = (serving | training | deploy) - set(mods)\n"
+            "last = {'vits_tpu_torch.' + m for m in ('graft_entry', 'parallel.mesh',\n"
+            "        'utils.tiny', 'utils.flops', 'utils.profiling', 'toolkits.del_ckpt',\n"
+            "        'toolkits.filelists', 'toolkits.mrk2lab', 'toolkits.plot_mels',\n"
+            "        'toolkits.vq_emotion')}\n"
+            "missing = (serving | training | deploy | last) - set(mods)\n"
             "print(len(mods), bad, missing)\n"
             "sys.exit(1 if bad or len(mods) < 44 or missing else 0)\n")
     r = _run(["-c", code])
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_shell_scripts_name_no_jax_package():
+    """The port's ops scripts (vits_tpu_torch/bin/, found by walking it)
+    name no `vits_tpu.` module and no `vits_tpu/` path."""
+    import re
+    scripts = []
+    for d, _, files in os.walk(os.path.join(ROOT, "vits_tpu_torch", "bin")):
+        scripts += [os.path.join(d, f) for f in files if f.endswith(".sh")]
+    assert len(scripts) >= 9, scripts
+    for path in scripts:
+        with open(path) as f:
+            text = f.read()
+        bad = re.findall(r"\bvits_tpu[./][\w./]*", text)
+        assert not bad, f"{os.path.relpath(path, ROOT)} names {bad}"
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):

@@ -19,6 +19,7 @@ raises. `counter.launches` counts those launches.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass
@@ -233,6 +234,28 @@ def maximum_path(neg_cent: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if neg_cent.device.type != "cuda":
         raise ValueError(f"maximum_path runs on CUDA or CPU tensors, not {neg_cent.device}")
     return maximum_path_cuda(neg_cent.float().contiguous(), t_ys, t_xs).to(neg_cent.dtype)
+
+
+@contextlib.contextmanager
+def recorded(calls: list):
+    """Within the block, every kernel launch (`maximum_path_cuda`) appends
+    its (neg_cent, t_ys, t_xs, path), copied to the host without a
+    synchronisation, to `calls`: synchronise before reading them. Launches
+    on CPU tensors (the plain version) are not kernel launches and are not
+    recorded."""
+    global maximum_path_cuda
+    kernel = maximum_path_cuda
+
+    def recording(neg, t_ys, t_xs):
+        path = kernel(neg, t_ys, t_xs)
+        calls.append(tuple(t.to("cpu", non_blocking=True) for t in (neg, t_ys, t_xs, path)))
+        return path
+
+    maximum_path_cuda = recording
+    try:
+        yield calls
+    finally:
+        maximum_path_cuda = kernel
 
 
 def mas_bytes(t_ys: torch.Tensor, t_xs: torch.Tensor, T_y: int, T_x: int) -> int:

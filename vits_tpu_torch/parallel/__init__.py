@@ -1,1 +1,2 @@
-"""Data parallelism over torch.distributed (`parallel.dist`)."""
+"""Data parallelism (`parallel.dist`) and the decoder's tensor parallelism
+(`parallel.mesh`) over torch.distributed."""

@@ -13,8 +13,10 @@ replicas stay bit-equal with no further synchronisation.
 
 The backend is a rule on the topology (`pick_backend`): NCCL when every
 rank on the host has a card of its own, gloo on the CPU and when ranks share
-a card (NCCL refuses two ranks on one device). On CUDA tensors gloo supports
-only all_reduce and broadcast, so those are the only collectives used here.
+a card (NCCL refuses two ranks on one device). Only all_reduce and
+broadcast are used here: torch's documentation lists only those two for
+gloo on CUDA tensors (on the card gloo takes all_gather too, which
+`parallel/mesh.py` uses).
 
 Every function is a plain function on tensors and a no-op in one process
 (`group` None or a world of one).

@@ -1,1 +1,1 @@
-"""Data-preparation tools of the SAT flow (counterparts of vits_tpu/toolkits/)."""
+"""Data-preparation and maintenance tools (counterparts of vits_tpu/toolkits/)."""
