@@ -15,8 +15,11 @@ request: host latency,
 device busy time (the union of kernel intervals), the device's idle share of
 the latency, and the device time and launches by kernel group (the int8
 chain kernel K1, cuBLAS/cuBLASLt GEMMs, cuDNN convolutions, everything
-else), then the top kernels by device time. With --out, writes the chrome traces there. Needs
-a CUDA device.
+else), the device time and the idle time by the program's "vits:" span
+(`vits_tpu_torch.utils.profiling.charge`: an operation goes to the span open
+when its launch call began, an idle gap to the span open when it began),
+then the top kernels by device time. With --out, writes the chrome traces
+there. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -51,23 +54,10 @@ def _group(name: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def _busy_us(events) -> float:
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def profile_request(fn, model, req, seed, label, out_dir):
     from torch.profiler import ProfilerActivity, profile
+
+    from vits_tpu_torch.utils import profiling
     spk, text, emo, rate = req
     np.random.seed(seed)
     torch.cuda.synchronize()
@@ -75,10 +65,14 @@ def profile_request(fn, model, req, seed, label, out_dir):
         t0 = time.perf_counter()
         wav, _ = fn(spk, text, emo, duration_rate=rate)
         ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # the program's spans also appear on the device's timeline, as user
+    # annotations: they are not kernels
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
-    busy_ms = _busy_us(kernels) / 1e3
+    charged = profiling.charge(prof.profiler.kineto_results.events())
+    busy_ms = charged["busy_s"] * 1e3
     by_group, by_name, n_group = {}, {}, {}
     for e in kernels:
         d = e.time_range.end - e.time_range.start
@@ -93,13 +87,24 @@ def profile_request(fn, model, req, seed, label, out_dir):
     for g, us in sorted(by_group.items(), key=lambda kv: -kv[1]):
         print(f"[profile] {label}:   {g:42s} {us / 1e3:8.3f} ms  {100 * us / total:5.1f}%  "
               f"{n_group[g]:4d} launches")
+    spans_ms = {k: v * 1e3 for k, v in charged["span_device_s"].items()}
+    idle_ms = {k: v * 1e3 for k, v in charged["idle_s"].items()}
+    for name in sorted(set(spans_ms) | set(idle_ms), key=lambda k: -spans_ms.get(k, 0.0)):
+        print(f"[profile] {label}:   span {name:20s} device {spans_ms.get(name, 0.0):8.3f} ms  "
+              f"idle {idle_ms.get(name, 0.0):8.3f} ms  {charged['span_calls'].get(name, 0):3d} "
+              f"ranges")
+    print(f"[profile] {label}:   outside spans {charged['unspanned_device_s'] * 1e3:.3f} ms, "
+          f"no launch call {charged['unmatched_device_s'] * 1e3:.3f} ms, "
+          f"launch calls {charged['launch_calls']}")
     for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
         print(f"[profile] {label}:   top  {us / 1e3:8.3f} ms  {n[:100]}")
     if out_dir:
         prof.export_chrome_trace(os.path.join(out_dir, f"trace_{label}.json"))
     return {"frames": frames, "latency_ms": ms, "busy_ms": busy_ms,
             "launches": len(kernels), "groups_ms": {g: us / 1e3 for g, us in by_group.items()},
-            "groups_launches": n_group}
+            "groups_launches": n_group, "spans_ms": spans_ms, "idle_ms": idle_ms,
+            "unspanned_ms": charged["unspanned_device_s"] * 1e3,
+            "unmatched_ms": charged["unmatched_device_s"] * 1e3}
 
 
 def main() -> int:

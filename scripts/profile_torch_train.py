@@ -9,18 +9,23 @@ chip_smoke.py trains (mel/MPD by default, stft/MRD with --variant stft; fp32,
 TF32 off; with --bf16 the configured bf16 step, its parameter casts a layer
 of their own), runs three warm steps on the
 training bench's synthetic batch (T_x 96, 400 spec frames; the last two
-timed without the profiler), then traces one step with torch.profiler. Each kernel's device time is charged to the layer
-whose host-side span launched it: the text encoder, posterior encoder,
-flows (the forward flow and the z_q reverse flow), MAS (the kernel K2),
-duration predictor, decoder, MPD or MRD (the D step's and the G step's
-passes; the MRD's spectral norm, its kernels' power iteration and the
-`sn_update` after D's update, a layer of its own), the mel loss (the stft
-variant: its image-summary mels) or the STFT loss (the five magnitudes and
-the sc/mag losses), the D and G backward passes, the two optimizer steps, and
-"other" (the glue between them: the neg_cent einsums, slices, the other
-losses). Prints the step's time untraced and traced, the device busy time
-and idle share, the device time per layer, the top kernels and the top host
-ops by their own CPU time. With --out, writes the chrome trace there. Needs a
+timed without the profiler), then traces one step with torch.profiler. Each
+device operation's time is charged to the innermost span open on the host
+when its launch call began (`vits_tpu_torch.utils.profiling.charge`): the
+program's own spans (`synth.text_encoder`, `synth.duration`, `synth.flow`, the
+forward flow and the z_q reverse flow, `synth.decoder`), and this script's
+"layer:" ranges around what the program does not span: the posterior encoder,
+MAS (the kernel K2), MPD or MRD (the D step's and the G step's passes; the
+MRD's spectral norm, its kernels' power iteration and the `sn_update` after
+D's update, a layer of its own), the mel loss (the stft variant: its
+image-summary mels) or the STFT loss (the five magnitudes and the sc/mag
+losses), the parameter casts, the D and G backward passes (launched from the
+autograd engine's thread while the caller waits in the range), the two
+optimizer steps; "other" is the glue launched outside every span (the
+neg_cent einsums, slices, the other losses), "unmatched" what no launch call
+claims. Prints the step's time untraced and traced, the device busy time and
+idle share, the device time per layer, the top kernels and the top host ops
+by their own CPU time. With --out, writes the chrome trace there. Needs a
 CUDA device.
 """
 
@@ -40,24 +45,9 @@ sys.path.insert(0, ROOT)
 TAG = "layer:"
 
 
-def _busy_us(events) -> float:
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
-
-
 def _instrument(synth, disc, variant="mel"):
-    """Wrap each layer's host span in a record_function range named
-    "layer:<name>"; returns the undo callables."""
+    """Wrap each layer the program does not span in a record_function range
+    named "layer:<name>"; returns the undo callables."""
     from torch.profiler import record_function
     from vits_tpu_torch.nn import core
     from vits_tpu_torch.ops import mas
@@ -90,11 +80,7 @@ def _instrument(synth, disc, variant="mel"):
         setattr(owner, attr, staticmethod(wrapped) if isinstance(raw, staticmethod) else wrapped)
         undo.append(lambda: setattr(owner, attr, raw))
 
-    for name in ("enc_p", "enc_q", "flow", "dp", "dec"):
-        hook_module(getattr(synth, name), {"enc_p": "text encoder",
-                                           "enc_q": "posterior encoder", "flow": "flows",
-                                           "dp": "duration predictor",
-                                           "dec": "decoder"}[name])
+    hook_module(synth.enc_q, "posterior encoder")
     mel = "mel loss" if variant == "mel" else "summary mels"
     hook_module(disc, "MPD" if variant == "mel" else "MRD")
     wrap(step_mod, "cast_params", "parameter casts")
@@ -120,26 +106,6 @@ def _instrument(synth, disc, variant="mel"):
     return undo
 
 
-def _by_layer(prof, kernels):
-    """Device time per layer: each torch op's kernels go to the innermost
-    layer range whose host span holds the op's start. K2 is launched through
-    ctypes, outside any torch op, so its kernel is charged by name."""
-    events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end, e.name[len(TAG):]) for e in events
-              if e.name.startswith(TAG) and e.device_type == torch.autograd.DeviceType.CPU]
-    out = {"MAS (K2)": sum(e.time_range.end - e.time_range.start for e in kernels
-                           if "mas_kernel" in e.name)}
-    for e in events:
-        ks = [k for k in (getattr(e, "kernels", None) or []) if "mas_kernel" not in k.name]
-        if not ks or e.name.startswith(TAG):
-            continue
-        t = e.time_range.start
-        inside = [(r_e - r_s, n) for r_s, r_e, n in ranges if r_s <= t <= r_e]
-        name = min(inside)[1] if inside else "other"
-        out[name] = out.get(name, 0.0) + sum(k.duration for k in ks)
-    return out
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", choices=("mel", "stft"), default="mel")
@@ -157,6 +123,7 @@ def main() -> int:
     from vits_tpu_torch.train.loop import (align_noise_at, build_models, build_optimizers,
                                            init_state)
     from vits_tpu_torch.train.step import TrainStepConfig, make_train_step
+    from vits_tpu_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
@@ -204,15 +171,20 @@ def main() -> int:
                and not e.is_user_annotation]
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
-    busy_ms = _busy_us(kernels) / 1e3
     total_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
-    layers = {k: v / 1e3 for k, v in _by_layer(prof, kernels).items()}
+    charged = profiling.charge(prof.profiler.kineto_results.events(),
+                               prefixes=(profiling.SPAN_PREFIX, TAG))
+    busy_ms = charged["busy_s"] * 1e3
+    layers = {k: v * 1e3 for k, v in charged["span_device_s"].items()}
+    layers["other"] = charged["unspanned_device_s"] * 1e3
+    layers["unmatched"] = charged["unmatched_device_s"] * 1e3
     print(f"[profile] {args.variant} {str(dtype)[6:]} training step B={B}: {plain_ms:.2f} ms "
           f"without the profiler; traced: host {ms:.2f} ms, device busy {busy_ms:.2f} ms, "
           f"device idle share "
           f"{1 - busy_ms / ms:.3f} of the traced step ({1 - busy_ms / plain_ms:.3f} of the "
           f"untraced one), {len(kernels)} kernels, kernel time {total_ms:.2f} ms "
-          f"({sum(layers.values()):.2f} ms charged to layers)")
+          f"({total_ms - layers['other'] - layers['unmatched']:.2f} ms charged to spans; "
+          f"launch calls {charged['launch_calls']})")
     for name, v in sorted(layers.items(), key=lambda kv: -kv[1]):
         print(f"[profile]   {name:22s} {v:9.3f} ms  {100 * v / total_ms:5.1f}%")
     by_name = {}
@@ -234,7 +206,10 @@ def main() -> int:
                                   "step_ms": plain_ms,
                                   "traced_host_ms": ms,
                                   "busy_ms": busy_ms,
-                                  "kernel_ms": total_ms, "layers_ms": layers},
+                                  "kernel_ms": total_ms, "layers_ms": layers,
+                                  "launch_calls": charged["launch_calls"],
+                                  "unmatched_ops_ms": {k[:100]: v * 1e3 for k, v in
+                                                       charged["unmatched_ops"].items()}},
                       "card": cs.card_line()}))
     return 0
 

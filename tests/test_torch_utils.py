@@ -15,8 +15,8 @@ tiny: the port's TINY constructors build the JAX ones' structures: the
 training state's parameter trees (keys and shapes through `convert`) and
 the TrainStepConfig fields both configs have.
 
-profiling: `trace` writes a trace file, `device_time` and `StepMeter` work
-on the CPU.
+profiling: `trace` writes a trace file on the CPU (the spans and their
+reduction: tests/test_torch_tracing.py).
 """
 
 import dataclasses
@@ -252,24 +252,3 @@ def test_trace_writes_a_trace_file(tmp_path, one_torch_thread):  # noqa: F811
     with profiling.trace(None) as prof:
         pass
     assert prof is None
-
-
-def test_device_time_and_step_meter(one_torch_thread):  # noqa: F811
-    calls = []
-
-    def fn(a, b):
-        calls.append(1)
-        return {"y": (a @ b, a.sum())}
-
-    a = torch.ones(32, 32)
-    t = profiling.device_time(fn, a, a, iters=3, warmup=2)
-    assert isinstance(t, float) and t > 0 and len(calls) == 5
-    meter = profiling.StepMeter()
-    meter.update(audio_sec=1.5)
-    meter.update(audio_sec=0.5, steps=2)
-    r = meter.rates()
-    assert r["elapsed_s"] > 0
-    assert r["steps_per_s"] == pytest.approx(3 / r["elapsed_s"], rel=1e-3)
-    assert r["audio_sec_per_s"] / r["steps_per_s"] == pytest.approx(2.0 / 3)
-    meter.reset()
-    assert meter.rates()["steps_per_s"] == 0.0

@@ -50,6 +50,15 @@ GPU turns TF32 off for cuDNN convolutions and cuBLAS matmuls
 (`torch.backends.cudnn.allow_tf32`, `torch.backends.cuda.matmul.allow_tf32`),
 process-wide: in fp32, TF32 would move the calibration values and the float
 decode the gate reads.
+
+While a profiler records, a request's layers are "vits:" spans
+(`utils/profiling.span`): `engine.infer` around `infer` (its args the
+request's number), `engine.prep` (resolution, the host arrays and their
+copies to the device), `engine.durations` (the two-phase read back of the
+durations), `engine.to_host` (the waveform's read back), `engine.retry` (a
+fused pass served again two-phase), and the model's own (`synth.*`).
+`EmoVITS.counts` counts the requests, the retries and the fused passes'
+decoded and served frames, always.
 """
 
 from __future__ import annotations
@@ -66,6 +75,7 @@ from vits_tpu_torch.device import resolve_device
 from vits_tpu_torch.models.synthesizer import Synthesizer, stream_windows
 from vits_tpu_torch.ops.seq import infer_path
 from vits_tpu_torch.utils import checkpoint as ckpt_mod
+from vits_tpu_torch.utils.profiling import span
 from vits_tpu_torch.utils.summary import logger
 
 _OFF = ("0", "", "false")
@@ -204,6 +214,12 @@ class EmoVITS:
         self.q8_margin = float(os.environ.get("VITS_TPU_Q8_MARGIN", "1.1"))
         self.q8_min_corr = float(os.environ.get("VITS_TPU_Q8_MIN_CORR", "0.995"))
         self.inference = self.infer
+        # requests resolved (every path), fused passes served again
+        # two-phase, the frames the fused passes decoded (their budgets) and
+        # served (those not served again); never reset: callers take the
+        # differences of snapshots
+        self.counts = {"requests": 0, "retried": 0, "fused_frames_decoded": 0,
+                       "fused_frames_served": 0}
 
     # ---------------- resources ----------------
     def _load_spkid_mapping(self, mapfn: str):
@@ -285,16 +301,18 @@ class EmoVITS:
                 first = self.spkid_mapping.get(int(emo[0]), int(emo[0])) if emo[0] != 0 else spkid
                 emo = (first, -1 if len(emo) == 1 else emo[1])
             emo_vec = self._get_spk_emo_embed(emo)
+        self.counts["requests"] += 1
         return spkid, emo_vec, x_length
 
     def _run_phase1(self, spkid, text, emo_vec, x_length, x_pad, aot_tb=None):
-        x = np.zeros((1, x_pad, self.text_channels), np.float32)
-        x[0, :x_length] = text[:x_pad]
-        x_mask = np.zeros((1, x_pad, 1), np.float32)
-        x_mask[0, :x_length] = 1.0
-        dt = self.compute_dtype
-        x, x_mask = self._tensor(x, dt), self._tensor(x_mask, dt)
-        emo, sid = self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long)
+        with span("engine.prep"):
+            x = np.zeros((1, x_pad, self.text_channels), np.float32)
+            x[0, :x_length] = text[:x_pad]
+            x_mask = np.zeros((1, x_pad, 1), np.float32)
+            x_mask[0, :x_length] = 1.0
+            dt = self.compute_dtype
+            x, x_mask = self._tensor(x, dt), self._tensor(x_mask, dt)
+            emo, sid = self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long)
         if aot_tb:
             return self.aot.call_p1(aot_tb, x, x_mask, emo, sid)
         return self.synth.infer_p1(x, emo, sid, x_mask=x_mask)
@@ -302,17 +320,18 @@ class EmoVITS:
     def _alignment(self, w_ceil, x_length, x_pad, y_length, y_pad):
         """Host-side duration expansion + noise-ring slice, in the compute
         dtype."""
-        dur = np.zeros((1, x_pad), np.float32)
-        dur[0, :x_length] = w_ceil
-        attn = infer_path(self._tensor(dur), y_pad)
-        nl = y_pad * self.inter_channels
-        start = np.random.randint(max(self.noise.size - nl, 1))
-        noise = np.resize(self.noise[start:start + nl], (nl,)).reshape(
-            1, y_pad, self.inter_channels)
-        y_mask = np.zeros((1, y_pad, 1), np.float32)
-        y_mask[0, :y_length] = 1.0
-        dt = self.compute_dtype
-        return attn.to(dt), self._tensor(noise, dt), self._tensor(y_mask, dt)
+        with span("synth.align"):
+            dur = np.zeros((1, x_pad), np.float32)
+            dur[0, :x_length] = w_ceil
+            attn = infer_path(self._tensor(dur), y_pad)
+            nl = y_pad * self.inter_channels
+            start = np.random.randint(max(self.noise.size - nl, 1))
+            noise = np.resize(self.noise[start:start + nl], (nl,)).reshape(
+                1, y_pad, self.inter_channels)
+            y_mask = np.zeros((1, y_pad, 1), np.float32)
+            y_mask[0, :y_length] = 1.0
+            dt = self.compute_dtype
+            return attn.to(dt), self._tensor(noise, dt), self._tensor(y_mask, dt)
 
     def _q8_observe(self, attn, m_p, s_p, g, noise, y_mask) -> bool:
         """Fold one request's activation statistics into the running record;
@@ -366,15 +385,17 @@ class EmoVITS:
         vector used). The fused path unless VITS_TPU_FUSED=0, while the int8
         decoder calibrates (its record needs phase 1's outputs), or while an
         AOT bundle serves (its programs are the two phases)."""
-        if self._prefer_fused and self.aot is None and \
-                (not self.quantize or self.dec_q8 is not None):
-            return self.infer_fused(spkid, text, emo, duration_rate=duration_rate)
-        return self._infer_two_phase(spkid, text, emo, duration_rate=duration_rate)
+        with span("engine.infer", str(self.counts["requests"])):
+            if self._prefer_fused and self.aot is None and \
+                    (not self.quantize or self.dec_q8 is not None):
+                return self.infer_fused(spkid, text, emo, duration_rate=duration_rate)
+            return self._infer_two_phase(spkid, text, emo, duration_rate=duration_rate)
 
     @torch.inference_mode()
     def _infer_two_phase(self, spkid: int, text: np.ndarray, emo=None, *,
                          duration_rate: float = 1.0):
-        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        with span("engine.prep"):
+            spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
         return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
 
     def _two_phase(self, spkid: int, emo_vec: np.ndarray, text: np.ndarray, x_length: int,
@@ -388,7 +409,8 @@ class EmoVITS:
         m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad, aot_tb)
 
         # host: durations -> alignment
-        w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
+        with span("engine.durations"):
+            w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
         w_ceil = np.ceil(w)
         y_length = max(int(w_ceil.sum()), 1)
         aot_fb = (self.aot.pick_frame_bucket(aot_tb, y_length)
@@ -401,7 +423,8 @@ class EmoVITS:
             wav = self.aot.call_p2(aot_tb, aot_fb, attn, m_p, s_p, g, noise, y_mask)
         else:
             wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
-        wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
+        with span("engine.to_host"):
+            wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
         return wav, emo_vec
 
     @torch.inference_mode()
@@ -415,28 +438,35 @@ class EmoVITS:
         with the speaker and emotion vector resolved here (the JAX package
         resolves them a second time there, so a chained speaker map moves
         its fallback to another speaker)."""
-        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
-        x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
-        max_frames = self.fused_frames(x_length, duration_rate)
-        use_q8 = self.dec_q8 is not None and _env_flag("VITS_TPU_FUSED_Q8", "0")
-        C = self.inter_channels
-        x = np.zeros((1, x_pad, self.text_channels), np.float32)
-        x[0, :x_length] = text[:x_pad]
-        nl = max_frames * C
-        start = np.random.randint(max(self.noise.size - nl, 1))
-        noise = self._noise_dev[start:start + nl].reshape(1, max_frames, C)
-        dt = self.compute_dtype
+        with span("engine.prep"):
+            spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+            x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
+            max_frames = self.fused_frames(x_length, duration_rate)
+            use_q8 = self.dec_q8 is not None and _env_flag("VITS_TPU_FUSED_Q8", "0")
+            C = self.inter_channels
+            x = np.zeros((1, x_pad, self.text_channels), np.float32)
+            x[0, :x_length] = text[:x_pad]
+            nl = max_frames * C
+            start = np.random.randint(max(self.noise.size - nl, 1))
+            noise = self._noise_dev[start:start + nl].reshape(1, max_frames, C)
+            dt = self.compute_dtype
+            args = (self._tensor(x, dt), self._tensor([x_length], torch.int32),
+                    self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long))
         o, _, y_mask, _ = self.synth.inference(
-            self._tensor(x, dt), self._tensor([x_length], torch.int32),
-            self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long),
-            length_scale=duration_rate, max_frames=max_frames, noise=noise,
+            *args, length_scale=duration_rate, max_frames=max_frames, noise=noise,
             dec_q8=self.dec_q8 if use_q8 else None)
         # one read back: the frame count (exact in f32) rides in front of the
         # waveform
-        out = torch.cat([y_mask.float().sum().reshape(1), o.float().reshape(-1)]).cpu().numpy()
+        with span("engine.to_host"):
+            out = torch.cat([y_mask.float().sum().reshape(1),
+                             o.float().reshape(-1)]).cpu().numpy()
         y_frames = int(out[0])
+        self.counts["fused_frames_decoded"] += max_frames
         if y_frames >= max_frames:  # the budget clipped the request
-            return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
+            self.counts["retried"] += 1
+            with span("engine.retry"):
+                return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
+        self.counts["fused_frames_served"] += y_frames
         return out[1:1 + y_frames * self.hop_size], emo_vec
 
     @torch.inference_mode()
@@ -451,11 +481,13 @@ class EmoVITS:
         slice is the two-phase one) plus `halo` frames on each side, and each
         window's interior is yielded as soon as it is decoded."""
         chunk = chunk_frames or self.frame_quantum
-        spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
+        with span("engine.prep"):
+            spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
         x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
         m_p, s_p, logw, g = self._run_phase1(spkid, text, emo_vec, x_length, x_pad)
 
-        w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
+        with span("engine.durations"):
+            w = np.exp(logw.float().cpu().numpy())[0, :x_length, 0] * duration_rate
         w_ceil = np.ceil(w)
         y_length = max(int(w_ceil.sum()), 1)
         y_pad = self._quantize(y_length, chunk)
@@ -465,7 +497,9 @@ class EmoVITS:
         up = self.hop_size
         for s, lo, hi, keep in stream_windows(y_length, chunk, halo, y_pad):
             seg = self.synth.dec(z[:, lo:hi], g=g, x_mask=y_mask[:, lo:hi])
-            yield seg[0, (s - lo) * up:(s - lo + keep) * up, 0].float().cpu().numpy()
+            with span("engine.to_host"):
+                chunk_wav = seg[0, (s - lo) * up:(s - lo + keep) * up, 0].float().cpu().numpy()
+            yield chunk_wav
 
 
 def main(argv=None):

@@ -41,6 +41,7 @@ from vits_tpu_torch.ops import mas
 from vits_tpu_torch.ops.seq import (gen_sin_table, generate_path, rand_slice_segments,
                                     sequence_mask)
 from vits_tpu_torch.parallel import dist
+from vits_tpu_torch.utils.profiling import span
 
 
 def _mask(x, m):
@@ -87,14 +88,15 @@ class DurationPredictor(nn.Module):
         self.cond2 = Dense(gin_channels, f)
 
     def forward(self, x, x_mask=None, g=None, rng=None):
-        p = self.p_dropout if self.training else 0.0
-        x, g = x.detach(), g.detach()
-        x = self.pre(x) + self.cond1(g)[:, None, :]
-        x = dropout(self.norm_1(self.act_1(self.conv_1(_mask(x, x_mask)))), p, rng)
-        x = x + self.cond2(g)[:, None, :]
-        x = dropout(self.norm_2(self.act_2(self.conv_2(_mask(x, x_mask)))), p, rng)
-        x = self.proj(_mask(x, x_mask))
-        return _mask(x, x_mask)  # (B, T, 1) log-durations
+        with span("synth.duration"):
+            p = self.p_dropout if self.training else 0.0
+            x, g = x.detach(), g.detach()
+            x = self.pre(x) + self.cond1(g)[:, None, :]
+            x = dropout(self.norm_1(self.act_1(self.conv_1(_mask(x, x_mask)))), p, rng)
+            x = x + self.cond2(g)[:, None, :]
+            x = dropout(self.norm_2(self.act_2(self.conv_2(_mask(x, x_mask)))), p, rng)
+            x = self.proj(_mask(x, x_mask))
+            return _mask(x, x_mask)  # (B, T, 1) log-durations
 
 
 class DurationDiscriminator(nn.Module):
@@ -161,17 +163,18 @@ class TextEncoder(nn.Module):
             self.alpha.fill_(1.0)
 
     def forward(self, x, x_mask=None, emo=None, g=None, rng=None):
-        h, T = self.hidden_channels, x.shape[1]
-        x = self.emb["1"](self.emb["0"](x))
-        x = x + self.emo_proj(emo)[:, None, :]
-        if T <= self.max_pos:
-            pe = self.pe[:, :T]
-        else:
-            pe = torch.from_numpy(gen_sin_table(T, h)).to(x.device)
-        x = x * math.sqrt(h) + pe.to(x.dtype) * self.alpha
-        x = self.encoder(x, x_mask, g=g, rng=rng)
-        stats = _mask(self.proj(x), x_mask)
-        return x, stats[..., :self.out_channels], stats[..., self.out_channels:]
+        with span("synth.text_encoder"):
+            h, T = self.hidden_channels, x.shape[1]
+            x = self.emb["1"](self.emb["0"](x))
+            x = x + self.emo_proj(emo)[:, None, :]
+            if T <= self.max_pos:
+                pe = self.pe[:, :T]
+            else:
+                pe = torch.from_numpy(gen_sin_table(T, h)).to(x.device)
+            x = x * math.sqrt(h) + pe.to(x.dtype) * self.alpha
+            x = self.encoder(x, x_mask, g=g, rng=rng)
+            stats = _mask(self.proj(x), x_mask)
+            return x, stats[..., :self.out_channels], stats[..., self.out_channels:]
 
 
 class PosteriorEncoder(nn.Module):
@@ -217,13 +220,14 @@ class ResidualCouplingBlock(nn.Module):
     def forward(self, x, x_mask=None, g=None, reverse: bool = True):
         """reverse (inference): flip then the reverse coupling, last flow
         first; forward (reverse=False, training): coupling then flip."""
-        if reverse:
-            for i in reversed(range(self.n_flows)):
-                x = self.flows[str(2 * i)](flip_channels(x), x_mask, g=g, reverse=True)
+        with span("synth.flow"):
+            if reverse:
+                for i in reversed(range(self.n_flows)):
+                    x = self.flows[str(2 * i)](flip_channels(x), x_mask, g=g, reverse=True)
+                return x
+            for i in range(self.n_flows):
+                x = flip_channels(self.flows[str(2 * i)](x, x_mask, g=g, reverse=False)[0])
             return x
-        for i in range(self.n_flows):
-            x = flip_channels(self.flows[str(2 * i)](x, x_mask, g=g, reverse=False)[0])
-        return x
 
 
 class Generator(nn.Module):
@@ -272,66 +276,68 @@ class Generator(nn.Module):
         """x (B, T, initial), x_mask (B, T, 1) -> (B, T * prod(rates), 1).
         record: a dict that collects the max-abs of every quantizable conv
         input (the JAX package's calibration points)."""
-        if record is not None:
-            record["pre_in"] = Q.amax(x)
-        x = self.conv_pre(x)
-        m = x_mask
-        for i in range(self.num_upsamples):
-            x = leaky_relu(x, LRELU_SLOPE)
-            if m is not None:
-                x = x * m
-                m = m.repeat_interleave(self.upsample_rates[i], dim=1)
+        with span("synth.decoder"):
             if record is not None:
-                record[f"up{i}_in"] = Q.amax(x)
-            x = _mask(self.ups[str(i)](x), m)
-            xs = None
-            for j in range(self.num_kernels):
-                idx = i * self.num_kernels + j
-                y = self.resblocks[str(idx)](x, g, x_mask=m, record=record,
-                                             rec_prefix=f"rb{idx}_")
-                xs = y if xs is None else xs + y
-            x = xs / self.num_kernels
-        x = leaky_relu(x, 0.01)
-        xm = _mask(x, m)
-        if record is not None:
-            record["post_in"] = Q.amax(xm)
-        return torch.tanh(self.conv_post(xm))
+                record["pre_in"] = Q.amax(x)
+            x = self.conv_pre(x)
+            m = x_mask
+            for i in range(self.num_upsamples):
+                x = leaky_relu(x, LRELU_SLOPE)
+                if m is not None:
+                    x = x * m
+                    m = m.repeat_interleave(self.upsample_rates[i], dim=1)
+                if record is not None:
+                    record[f"up{i}_in"] = Q.amax(x)
+                x = _mask(self.ups[str(i)](x), m)
+                xs = None
+                for j in range(self.num_kernels):
+                    idx = i * self.num_kernels + j
+                    y = self.resblocks[str(idx)](x, g, x_mask=m, record=record,
+                                                 rec_prefix=f"rb{idx}_")
+                    xs = y if xs is None else xs + y
+                x = xs / self.num_kernels
+            x = leaky_relu(x, 0.01)
+            xm = _mask(x, m)
+            if record is not None:
+                record["post_in"] = Q.amax(xm)
+            return torch.tanh(self.conv_post(xm))
 
     def forward_q8(self, qp: Dict, x, g=None, x_mask=None):
         """The int8 decoder: conv_pre, the length-preserving upsamples, every
         ResBlock2 chain and conv_post run s8 x s8 -> s32, each dequantized
         to the activation dtype (float32 or bfloat16); gates, residuals and
         the speaker conditioning stay in it (K1 computes its gate in f32)."""
-        self._require_int8()
-        q = qp["pre"]
-        x = Q.conv1d_q8(Q.quantize_act(x, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
-                        q["b"], padding=3, out_dtype=x.dtype)
-        m = x_mask
-        for i in range(self.num_upsamples):
-            x = leaky_relu(x, LRELU_SLOPE)
-            if m is not None:
-                x = x * m
-                m = m.repeat_interleave(self.upsample_rates[i], dim=1)
-            q = qp["ups"].get(str(i))
-            if q is not None:
-                x = Q.conv_transpose1d_q8(Q.quantize_act(x, q["s_in"]), q["wsub"], q["dmin"],
-                                          q["dmax"], q["s_in"], q["s_w"], q["b"],
-                                          out_dtype=x.dtype)
-            else:  # not length-preserving: the JAX package runs this stage in float
-                x = self.ups[str(i)](x)
-            x = _mask(x, m)
-            xs = None
-            for j in range(self.num_kernels):
-                idx = str(i * self.num_kernels + j)
-                y = self.resblocks[idx].apply_q8(qp["resblocks"][idx], x, g, x_mask=m)
-                xs = y if xs is None else xs + y
-            x = xs / self.num_kernels
-        x = leaky_relu(x, 0.01)
-        xm = _mask(x, m)
-        q = qp["post"]
-        x = Q.conv1d_q8(Q.quantize_act(xm, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
-                        None, padding=3, out_dtype=xm.dtype)
-        return torch.tanh(x)
+        with span("synth.decoder_q8"):
+            self._require_int8()
+            q = qp["pre"]
+            x = Q.conv1d_q8(Q.quantize_act(x, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
+                            q["b"], padding=3, out_dtype=x.dtype)
+            m = x_mask
+            for i in range(self.num_upsamples):
+                x = leaky_relu(x, LRELU_SLOPE)
+                if m is not None:
+                    x = x * m
+                    m = m.repeat_interleave(self.upsample_rates[i], dim=1)
+                q = qp["ups"].get(str(i))
+                if q is not None:
+                    x = Q.conv_transpose1d_q8(Q.quantize_act(x, q["s_in"]), q["wsub"], q["dmin"],
+                                              q["dmax"], q["s_in"], q["s_w"], q["b"],
+                                              out_dtype=x.dtype)
+                else:  # not length-preserving: the JAX package runs this stage in float
+                    x = self.ups[str(i)](x)
+                x = _mask(x, m)
+                xs = None
+                for j in range(self.num_kernels):
+                    idx = str(i * self.num_kernels + j)
+                    y = self.resblocks[idx].apply_q8(qp["resblocks"][idx], x, g, x_mask=m)
+                    xs = y if xs is None else xs + y
+                x = xs / self.num_kernels
+            x = leaky_relu(x, 0.01)
+            xm = _mask(x, m)
+            q = qp["post"]
+            x = Q.conv1d_q8(Q.quantize_act(xm, q["s_in"]), q["w8"], q["s_in"], q["s_w"],
+                            None, padding=3, out_dtype=xm.dtype)
+            return torch.tanh(x)
 
     @torch.no_grad()
     def calibrate(self, x, g=None, x_mask=None) -> Dict[str, torch.Tensor]:
@@ -542,8 +548,9 @@ class Synthesizer(nn.Module):
         attn = attn.to(m_p.dtype)
         if y_mask is not None:
             y_mask = y_mask.to(m_p.dtype)
-        z_p = torch.einsum("byx,bxc->byc", attn, m_p) + \
-            noise.to(m_p.dtype) * torch.einsum("byx,bxc->byc", attn, s_p)
+        with span("synth.align"):
+            z_p = torch.einsum("byx,bxc->byc", attn, m_p) + \
+                noise.to(m_p.dtype) * torch.einsum("byx,bxc->byc", attn, s_p)
         return _mask(self.flow(z_p, y_mask, g=g), y_mask)
 
     @torch.no_grad()
@@ -577,18 +584,19 @@ class Synthesizer(nn.Module):
         x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
         x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g)
         logw = self.dp(x_h, x_mask, g=g)
-        # the rate applies in f32, as the JAX engine passes it (an f32 scalar)
-        w_ceil = torch.ceil((torch.exp(logw) * x_mask).float() * length_scale)[..., 0]
-        y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
-        y_lengths = y_lengths.clamp(max=max_frames)
-        y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(x.dtype)
-        attn = generate_path(w_ceil, y_mask * x_mask.transpose(1, 2)).to(x.dtype)
-        m_p_e = torch.einsum("byx,bxc->byc", attn, m_p)
-        logs_p_e = torch.einsum("byx,bxc->byc", attn, logs_p)
-        if noise is None:
-            noise = torch.randn(m_p_e.shape, generator=generator, device=m_p_e.device,
-                                dtype=m_p_e.dtype) * noise_scale
-        z_p = m_p_e + noise.to(m_p_e.dtype) * torch.exp(logs_p_e)
+        with span("synth.align"):
+            # the rate applies in f32, as the JAX engine passes it (an f32 scalar)
+            w_ceil = torch.ceil((torch.exp(logw) * x_mask).float() * length_scale)[..., 0]
+            y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
+            y_lengths = y_lengths.clamp(max=max_frames)
+            y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(x.dtype)
+            attn = generate_path(w_ceil, y_mask * x_mask.transpose(1, 2)).to(x.dtype)
+            m_p_e = torch.einsum("byx,bxc->byc", attn, m_p)
+            logs_p_e = torch.einsum("byx,bxc->byc", attn, logs_p)
+            if noise is None:
+                noise = torch.randn(m_p_e.shape, generator=generator, device=m_p_e.device,
+                                    dtype=m_p_e.dtype) * noise_scale
+            z_p = m_p_e + noise.to(m_p_e.dtype) * torch.exp(logs_p_e)
         z = self.flow(z_p, y_mask, g=g)
         if dec_q8 is not None:
             o = self.dec.forward_q8(dec_q8, z * y_mask, g=g, x_mask=y_mask)
