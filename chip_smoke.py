@@ -43,7 +43,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 default of `infer`) and fused int8 (VITS_TPU_FUSED_Q8=1):
                 each request's latency per mode, the means and medians;
                 fused lengths equal two-phase's, K1 launches per fused int8
-                request equal the plans at the frame budget, fused int8
+                request equal the plans, its last chain over the request's
+                frames in whole quanta, not the frame budget, fused int8
                 against fused float; one fused float request held against
                 a CPU copy of the model; one request with a clipped budget
                 through the two-phase retry;
@@ -374,8 +375,8 @@ def phase_kernels(dev, dtype=torch.float32):
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "ops_s": 0.0, "bytes_s": 0.0}
     gen = torch.Generator().manual_seed(SEED + bf16)
     M4 = CHAIN_FRAMES * 48
-    # the batch case; and each chain over the fused budget: the masked tail
-    # the fused path gives K1 (valid = the request's samples, M the budget's)
+    # the batch case; and each chain over the longest fused budget, a long
+    # masked tail (valid = a 700-frame request's samples, M the budget's)
     extra = [(64, 7, (1, 3, 5), M4, [M4 - 1, M4 - 3001, M4 // 2 + 17, 901], False)]
     extra += [(C, k, dil, M // CHAIN_FRAMES * RING_FRAMES, [M // CHAIN_FRAMES * 700], True)
               for C, k, dil, M, _ in shapes]
@@ -1642,8 +1643,9 @@ def phase_fused(dev, model, ckpt):
     decoder is frozen) and fused int8 (VITS_TPU_FUSED_Q8=1), with the same
     seed. Checks: the fused pass served every request (frames below its
     budget) at two-phase's length; K1 launches per fused int8 request equal
-    the plans at the budget (the decoder runs over the budget, not the
-    request), none in fused float; fused int8 against fused float. Then one
+    the plans, its last chain over the request's frame bucket as two-phase's
+    (the decoder runs over the frames in whole quanta, not over the budget),
+    none in fused float; fused int8 against fused float. Then one
     fused float request on the card against a CPU copy of the model, and one
     request whose clipped budget sends it through the two-phase retry."""
     from vits_tpu_torch.infer import EmoVITS
@@ -1658,8 +1660,8 @@ def phase_fused(dev, model, ckpt):
     saved = _env(VITS_TPU_FUSED_Q8=None, VITS_TPU_FUSED_FRAMES_PER_TOKEN=None)
     rb_chain.counter.launches = 0           # main path starts here
     # one untimed round of the first request in each mode: the fused pass's
-    # shapes (the 4096-frame budget) are new to this process; two-phase's
-    # change with every request's frame bucket, as they do in service
+    # text-encoder shapes are new to this process; the decoders' change with
+    # every request's frame bucket, as they do in service
     spk, text, emo, rate = reqs[0]
     for mode in modes:
         _env(VITS_TPU_FUSED_Q8="1" if mode == "fused int8" else "0")
@@ -1684,12 +1686,11 @@ def phase_fused(dev, model, ckpt):
         if frames >= budget:
             raise RuntimeError(f"fused phase, request {i}: {frames} frames fill the budget "
                                f"{budget}; the two-phase retry served it, not the fused pass")
-        want_2p = k1_launches_per_decode(m, frames, dev)
-        want_fused = k1_launches_per_decode(m, budget, dev)
-        # the last chain's M is the decoded frames': the budget's in the fused
-        # pass, the frame bucket's in two-phase; its valid is the request's
-        want_m = {"two-phase int8": model._quantize(frames, model.frame_quantum) * up,
-                  "fused int8": budget * up}
+        want_2p = want_fused = k1_launches_per_decode(m, frames, dev)
+        # the last chain's M is the decoded frames', the frame bucket's in
+        # both paths; its valid is the request's
+        want_m = dict.fromkeys(("two-phase int8", "fused int8"),
+                               model._quantize(frames, model.frame_quantum) * up)
         for mode, (wav, ms, launched, last) in out.items():
             if len(wav) != frames * hop or not np.all(np.isfinite(wav)):
                 raise RuntimeError(f"fused phase, request {i}, {mode}: {len(wav)} samples, "
@@ -1719,7 +1720,7 @@ def phase_fused(dev, model, ckpt):
 
     # one fused float request on the card against a CPU copy of the model:
     # 64 tokens at the rate that gives about 128 frames, to keep the CPU's
-    # decode over the budget short
+    # decode short
     spk, text, emo, _ = reqs[0]
     text = text[:64]
     with torch.inference_mode():
@@ -1758,16 +1759,16 @@ def phase_fused(dev, model, ckpt):
     retry_launches = rb_chain.counter.launches  # main path ends here
     launches += retry_launches
     _env(**saved)
-    # the fused pass's int8 decode over the budget, then the two-phase one
-    want = k1_launches_per_decode(m, budget, dev) + k1_launches_per_decode(m, lengths[0] // hop,
-                                                                         dev)
+    # no decode in the fused pass (its frame count fills the budget), then
+    # the two-phase one
+    want = k1_launches_per_decode(m, lengths[0] // hop, dev)
     if len(wav) != lengths[0] or budget * hop > len(wav) or retry_launches != want:
         raise RuntimeError(f"the two-phase retry gave {len(wav)} samples, two-phase "
                            f"{lengths[0]} (budget {budget} frames), K1 launches "
                            f"{retry_launches}, expected {want}")
     log(f"[fused] budget clipped to {budget} frames: the two-phase retry served "
-        f"{len(wav) // hop} frames, as two-phase does, in {ms:.2f} ms (the fused pass, then "
-        f"two-phase int8), K1 launches {retry_launches}")
+        f"{len(wav) // hop} frames, as two-phase does, in {ms:.2f} ms (the fused pass's "
+        f"durations, then two-phase int8), K1 launches {retry_launches}")
     return launches, lat
 
 
@@ -1845,9 +1846,9 @@ def phase_bf16(dev, model32, ckpt):
     one untimed round of them all. Checks per request: every bf16 path serves the
     request's bf16 frames (the fused ones below their budget); K1's float32
     form launches only in the fp32 mode and its bf16 form only in the bf16
-    int8 modes, as many times as the plans of the decoder's chains (at the
-    frames' bucket two-phase, at the budget fused), its last launch over that
-    M with the request's frames valid; int8 against float above
+    int8 modes, as many times as the plans of the decoder's chains, its last
+    launch over the frames' bucket with the request's frames valid; int8
+    against float above
     MIN_REQUEST_CORR, two-phase and fused; the stream against the two-phase
     float output. Then one request decoded by both engines from the fp32
     engine's alignment: the bf16-vs-fp32 waveform correlation."""
@@ -1913,7 +1914,8 @@ def phase_bf16(dev, model32, ckpt):
                                f"{budget}")
         want_m = {"bf16 two-phase int8": (model._quantize(frames, model.frame_quantum) * up,
                                           frames * up),
-                  "bf16 fused int8": (budget * up, frames_f * up)}
+                  "bf16 fused int8": (model._quantize(frames_f, model.frame_quantum) * up,
+                                      frames_f * up)}
         for mode, (wav, ms, l32, l16, last) in out.items():
             n = n_of[mode]
             if len(wav) != n * hop or not np.all(np.isfinite(wav)) or np.abs(wav).max() > 1.0:
@@ -1921,7 +1923,7 @@ def phase_bf16(dev, model32, ckpt):
                                    f"(expected {n * hop}), or a value not finite or past 1")
             want32 = k1_launches_per_decode(m, frames32, dev) if mode.startswith("fp32") else 0
             want16 = {"bf16 two-phase int8": k1_launches_per_decode(m, frames, dev),
-                      "bf16 fused int8": k1_launches_per_decode(m, budget, dev)}.get(mode, 0)
+                      "bf16 fused int8": k1_launches_per_decode(m, frames_f, dev)}.get(mode, 0)
             if (l32, l16) != (want32, want16):
                 raise RuntimeError(f"bf16 phase, request {i}, {mode}: K1 launched {l32} times "
                                    f"in float32 and {l16} in bf16, expected {want32}, {want16}")
@@ -2013,7 +2015,8 @@ def phase_servers(dev, ckpt):
             f"calibration {speecher.q8_calib_requests} requests; started in "
             f"{time.perf_counter() - t0:.1f} s")
         # each fused pass the server makes: its budget, frames, and K1's launches
-        # and last launch (an int8 request decodes over the budget, not its frames)
+        # and last launch (an int8 request decodes over its frames in whole
+        # quanta, not over the budget)
         passes, infer_fused = [], speecher.infer_fused
 
         def recorded_infer_fused(spkid, text, emo=None, *, duration_rate=1.0):
@@ -2053,21 +2056,24 @@ def phase_servers(dev, ckpt):
             kind = "int8" if frozen else "freeze" if speecher.dec_q8 is not None else "calib"
             note = ""
             if kind == "int8":
-                # one fused int8 pass: the plans' launches at its budget, the
-                # last chain over the budget with the request's frames valid
+                # one fused int8 pass: the plans' launches, the last chain over
+                # the frames in whole quanta with the request's frames valid
                 if len(passes) != n_passes + 1:
                     raise RuntimeError(f"server request {i}: {len(passes) - n_passes} fused "
                                        f"passes, expected 1")
                 budget, frames, pass_launches, last = passes[-1]
-                want = k1_launches_per_decode(m, budget, dev)
-                if launched != want or pass_launches != want or last is None or \
-                        last[0] != budget * up or int(last[1][0]) != frames * up:
+                y_pad = speecher._quantize(frames, speecher.frame_quantum)
+                want = k1_launches_per_decode(m, frames, dev)
+                if frames >= budget or launched != want or pass_launches != want or \
+                        last is None or last[0] != y_pad * up or int(last[1][0]) != frames * up:
                     raise RuntimeError(
-                        f"server request {i}: K1 launched {launched} times, expected {want}; "
-                        f"its last launch M {last and last[0]}, valid "
-                        f"{last and int(last[1][0])}, expected {budget * up}, {frames * up}")
+                        f"server request {i}: {frames} frames in a {budget}-frame budget, K1 "
+                        f"launched {launched} times, expected {want}; its last launch M "
+                        f"{last and last[0]}, valid {last and int(last[1][0])}, expected "
+                        f"{y_pad * up}, {frames * up}")
                 int8_launches.append(launched)
-                note = f" (the plans at the {budget}-frame budget; {frames} frames valid)"
+                note = (f" (the plans over {y_pad} of the {budget}-frame budget; {frames} "
+                        f"frames valid)")
             log(f"[servers] socket request {i} ({kind}): {len(text)} characters, "
                 f"{len(pcm) / out['sr']:.3f} audio s, client latency {ms:.2f} ms, frontend "
                 f"{out['time_used_frontend']:.2f} ms, backend {out['time_used_backend']:.2f} ms, "

@@ -15,7 +15,9 @@ device time launched outside the program's spans and the time no launch
 call claims (by operation name), and the launch calls seen. In a serving
 cell it also takes the difference of the engine's `counts` over the window
 and sets it beside the benchmark's own reckoning from the served lengths and
-the fused budget's rule (`benchmark/harness/check.py::fused_budget`). The
+the fused budget's rule (`benchmark/harness/check.py::fused_budget`), with the
+fused passes' served frames over their decoded ones and their decoded frames
+(whole 64-frame quanta) over their budgets. The
 last line of standard output is one JSON object: "program" (these numbers)
 and "result" (the benchmark's line). Needs a CUDA device.
 """
@@ -49,15 +51,26 @@ def span_ms(charged, names, per):
 
 def outside_counts(rec, hps):
     """The benchmark's reckoning from outside the program: requests, those
-    whose served frames fill the fused budget, and the budgets' and the
-    other requests' frames."""
-    from benchmark.harness.check import fused_budget
+    whose served frames fill the fused budget, the budgets, and the other
+    requests' frames in whole 64-frame quanta (what the fused pass of the
+    benchmark's engine decodes) and as served."""
+    from benchmark.harness.check import fused_budget, quantize
     work = [(tokens, frames) for _, tokens, frames, _ in rec["synth_work"]]
     budgets = [fused_budget(t, hps) for t, _ in work]
-    return {"requests": len(work),
-            "retried": sum(f >= b for (_, f), b in zip(work, budgets)),
-            "fused_frames_decoded": sum(budgets),
-            "fused_frames_served": sum(f for (_, f), b in zip(work, budgets) if f < b)}
+    fused = [f for (_, f), b in zip(work, budgets) if f < b]
+    return {"requests": len(work), "retried": len(work) - len(fused),
+            "fused_frames_budget": sum(budgets),
+            "fused_frames_decoded": sum(quantize(f, 64) for f in fused),
+            "fused_frames_served": sum(fused)}
+
+
+def fused_shares(counts) -> dict:
+    """The fused passes' served frames over their decoded ones, and their
+    decoded frames over their budgets, in %."""
+    return {"fused_served": 100.0 * counts["fused_frames_served"]
+            / max(counts["fused_frames_decoded"], 1),
+            "fused_decoded_of_budget": 100.0 * counts["fused_frames_decoded"]
+            / max(counts["fused_frames_budget"], 1)}
 
 
 def kernel_launch_calls(events):
@@ -151,12 +164,12 @@ def report(seen) -> dict:
     if counts:
         out["counts"] = counts
         out["retry_share.serve"] = 100.0 * counts["retried"] / max(counts["requests"], 1)
-        out["fused_served.serve"] = (100.0 * counts["fused_frames_served"]
-                                     / max(counts["fused_frames_decoded"], 1))
+        shares = fused_shares(counts)
+        out["fused_served.serve"] = shares["fused_served"]
+        out["fused_decoded_of_budget"] = shares["fused_decoded_of_budget"]
         outside = outside_counts(rec, rec["hps"])
         out["outside_counts"] = outside
-        out["fused_served_outside"] = (100.0 * outside["fused_frames_served"]
-                                       / max(outside["fused_frames_decoded"], 1))
+        out["outside_shares"] = fused_shares(outside)
     events = rec.get("events_ms") or {}
     for k in ("p1", "p2"):
         if events.get(k):

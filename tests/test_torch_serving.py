@@ -168,8 +168,8 @@ def test_fused_int8_matches_jax(deploy, jax_init, monkeypatch):
     requests = [(2 + i, rng.randn(T_TOKENS, 16).astype(np.float32),
                  rng.randn(1024).astype(np.float32)) for i in range(3)]
     fused_q8 = []
-    orig = tm.synth.inference
-    monkeypatch.setattr(tm.synth, "inference", lambda *a, **k: fused_q8.append(
+    orig = tm.synth.inference_decode
+    monkeypatch.setattr(tm.synth, "inference_decode", lambda *a, **k: fused_q8.append(
         k.get("dec_q8") is not None) or orig(*a, **k))
     for i, (spk, text, emo) in enumerate(requests[:2]):
         wav_j, _ = _seeded(400 + i, jm.infer, spk, text, emo)

@@ -7,7 +7,8 @@ served again two-phase, streaming) and the batch phases (`infer_p1`,
 nesting the layers have; the waveform is the same bit for bit with the
 profiler on and off; `EmoVITS.counts` follows the fused budget's rule
 (`benchmark/harness/check.py::fused_budget`, the rule the benchmark reckons
-retries by); a `torch.export` of either serving phase holds no profiler op.
+retries by) and counts the frames decoded in whole frame quanta; a
+`torch.export` of either serving phase holds no profiler op.
 
 `profiling.charge` on kineto-like events: a device operation is charged
 through its launch call's correlation id to the innermost span open on the
@@ -94,8 +95,9 @@ def _nest(depth, names):
 
 
 MODEL = ["synth.text_encoder", "synth.duration"]
-FUSED = _nest(1, ["engine.prep", *MODEL, "synth.align", "synth.flow", "synth.decoder",
-                  "engine.to_host"])
+# the fused pass up to the read of its frame count, then the rest of it
+FUSED_HEAD = _nest(1, ["engine.prep", *MODEL, "synth.align", "engine.durations"])
+FUSED = FUSED_HEAD + _nest(1, ["synth.align", "synth.flow", "synth.decoder", "engine.to_host"])
 TWO_PHASE = ["engine.prep", *MODEL, "engine.durations", "synth.align", "synth.align",
              "synth.flow", "synth.decoder", "engine.to_host"]
 
@@ -135,30 +137,33 @@ def test_two_phase_request_spans(deploy, monkeypatch):
 
 def test_retried_request_spans_and_counts(deploy, monkeypatch):
     """With one frame a token budgeted, a LONG request (~5 frames a token)
-    fills its budget and is served again two-phase; a FEW-token one fits the
-    64-frame floor. The counters take the budgets by the benchmark's rule."""
+    fills its budget and is served again two-phase once its frame count is
+    read, decoding nothing first; a FEW-token one fits the 64-frame floor and
+    is decoded over its frames in whole quanta. The counters take the
+    budgets by the benchmark's rule."""
     monkeypatch.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", "1")
     model = EmoVITS(deploy[0], device="cpu")
-    hop = model.hop_size
+    hop, q = model.hop_size, model.frame_quantum
     spk, text, emo = _request(LONG)
     np.random.seed(13)
     (wav, _), prof = _profiled(lambda: model.infer(spk, text, emo))
-    assert _tree(prof) == ([(0, "engine.infer")] + FUSED + [(1, "engine.retry")]
+    assert _tree(prof) == ([(0, "engine.infer")] + FUSED_HEAD + [(1, "engine.retry")]
                            + _nest(2, TWO_PHASE))
     assert model.counts == {"requests": 1, "retried": 1,
-                            "fused_frames_decoded": fused_budget(LONG, model.hps, 1.0),
-                            "fused_frames_served": 0}
+                            "fused_frames_budget": fused_budget(LONG, model.hps, 1.0),
+                            "fused_frames_decoded": 0, "fused_frames_served": 0}
     assert len(wav) // hop > fused_budget(LONG, model.hps, 1.0)
 
     spk, text, emo = _request(FEW, seed=4)
     np.random.seed(14)
     wav, _ = model.infer(spk, text, emo)
-    assert 0 < len(wav) // hop < fused_budget(FEW, model.hps, 1.0)
+    frames = len(wav) // hop
+    assert 0 < frames < fused_budget(FEW, model.hps, 1.0)
     assert model.counts == {
         "requests": 2, "retried": 1,
-        "fused_frames_decoded": fused_budget(LONG, model.hps, 1.0) + fused_budget(
+        "fused_frames_budget": fused_budget(LONG, model.hps, 1.0) + fused_budget(
             FEW, model.hps, 1.0),
-        "fused_frames_served": len(wav) // hop}
+        "fused_frames_decoded": -(-frames // q) * q, "fused_frames_served": frames}
 
 
 def test_stream_spans(deploy):

@@ -4,15 +4,17 @@ JAX package, or a reference `.pth`), speaker-id remaps `*.map` and
 per-speaker emotion banks `<spkid>.emo` with mtime reload, the pre-sampled
 noise ring, and three synthesis paths:
 
-- `infer_fused`, the default of `infer`: text encoder, durations, the
-  alignment on the device, flows and decoder in one pass
-  (`Synthesizer.inference`) over a frame budget of
-  `VITS_TPU_FUSED_FRAMES_PER_TOKEN` (default 8) frames per token, its noise
-  a slice of a device copy of the ring, one read back to the host at the
-  end; a request whose durations fill the budget is served again by the
-  exact two-phase path. It decodes in float unless `VITS_TPU_FUSED_Q8=1`
-  (read per call) and the int8 decoder is frozen. `VITS_TPU_FUSED=0` (read
-  at construction) routes `infer` to two-phase.
+- `infer_fused`, the default of `infer`: text encoder, durations and the
+  frame count on the device (`Synthesizer.inference_durations`) within a
+  frame budget of `VITS_TPU_FUSED_FRAMES_PER_TOKEN` (default 8) frames per
+  token; the frame count read back to the host; then the alignment, flows
+  and decoder on the device (`inference_decode`) over that count in whole
+  frame quanta, its noise a slice of a device copy of the ring drawn for the
+  budget, and the served samples read back. A request whose durations fill
+  the budget is served again by the exact two-phase path. It decodes in
+  float unless `VITS_TPU_FUSED_Q8=1` (read per call) and the int8 decoder is
+  frozen. `VITS_TPU_FUSED=0` (read at construction) routes `infer` to
+  two-phase.
 - `_infer_two_phase`: phase 1 encodes text and predicts durations on the
   device; the host turns durations into the alignment and slices the noise
   ring; phase 2 runs the flows and the decoder.
@@ -54,11 +56,11 @@ decode the gate reads.
 While a profiler records, a request's layers are "vits:" spans
 (`utils/profiling.span`): `engine.infer` around `infer` (its args the
 request's number), `engine.prep` (resolution, the host arrays and their
-copies to the device), `engine.durations` (the two-phase read back of the
-durations), `engine.to_host` (the waveform's read back), `engine.retry` (a
-fused pass served again two-phase), and the model's own (`synth.*`).
-`EmoVITS.counts` counts the requests, the retries and the fused passes'
-decoded and served frames, always.
+copies to the device), `engine.durations` (the read back of the durations,
+two-phase, or of the frame count, fused), `engine.to_host` (the waveform's
+read back), `engine.retry` (a fused pass served again two-phase), and the
+model's own (`synth.*`). `EmoVITS.counts` counts the requests, the retries
+and the fused passes' budgeted, decoded and served frames, always.
 """
 
 from __future__ import annotations
@@ -215,11 +217,12 @@ class EmoVITS:
         self.q8_min_corr = float(os.environ.get("VITS_TPU_Q8_MIN_CORR", "0.995"))
         self.inference = self.infer
         # requests resolved (every path), fused passes served again
-        # two-phase, the frames the fused passes decoded (their budgets) and
-        # served (those not served again); never reset: callers take the
+        # two-phase, the fused passes' frame budgets, the frames their flows
+        # and decoder ran over (whole frame quanta; none for a pass served
+        # again) and the frames they served; never reset: callers take the
         # differences of snapshots
-        self.counts = {"requests": 0, "retried": 0, "fused_frames_decoded": 0,
-                       "fused_frames_served": 0}
+        self.counts = {"requests": 0, "retried": 0, "fused_frames_budget": 0,
+                       "fused_frames_decoded": 0, "fused_frames_served": 0}
 
     # ---------------- resources ----------------
     def _load_spkid_mapping(self, mapfn: str):
@@ -372,7 +375,8 @@ class EmoVITS:
         """The fused path's frame budget for x_length tokens:
         VITS_TPU_FUSED_FRAMES_PER_TOKEN (default 8) frames a token at the
         duration rate, in whole frame quanta, at least one quantum and at most
-        the ring's whole quanta."""
+        the ring's whole quanta. A request that fills it is served again
+        two-phase; the noise start is drawn for it."""
         fpt = float(os.environ.get("VITS_TPU_FUSED_FRAMES_PER_TOKEN", "8"))
         q = self.frame_quantum
         budget = self._quantize(max(int(x_length * fpt * duration_rate), q), q)
@@ -430,44 +434,47 @@ class EmoVITS:
     @torch.inference_mode()
     def infer_fused(self, spkid: int, text: np.ndarray, emo=None, *,
                     duration_rate: float = 1.0):
-        """One-pass batch-1 synthesis (`Synthesizer.inference`) over the
-        frame budget `fused_frames` gives, the prior noise a slice of the
-        device copy of the ring at a host-drawn start. The frame count and
-        the waveform come back to the host in one read. If the durations fill
-        the budget the request is served again by the exact two-phase path,
-        with the speaker and emotion vector resolved here (the JAX package
-        resolves them a second time there, so a chained speaker map moves
-        its fallback to another speaker)."""
+        """Batch-1 synthesis on the device (`Synthesizer.inference` in its
+        two halves) within the frame budget `fused_frames` gives, the prior
+        noise a slice of the device copy of the ring at a start drawn on the
+        host for the budget. The first half's frame count comes back to the
+        host; the flows and the decoder then run over that count in whole
+        frame quanta, not over the budget, and only the served samples come
+        back. If the durations fill the budget the request is served again by
+        the exact two-phase path, with the speaker and emotion vector
+        resolved here (the JAX package resolves them a second time there, so
+        a chained speaker map moves its fallback to another speaker)."""
         with span("engine.prep"):
             spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
             x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
-            max_frames = self.fused_frames(x_length, duration_rate)
+            budget = self.fused_frames(x_length, duration_rate)
             use_q8 = self.dec_q8 is not None and _env_flag("VITS_TPU_FUSED_Q8", "0")
             C = self.inter_channels
             x = np.zeros((1, x_pad, self.text_channels), np.float32)
             x[0, :x_length] = text[:x_pad]
-            nl = max_frames * C
-            start = np.random.randint(max(self.noise.size - nl, 1))
-            noise = self._noise_dev[start:start + nl].reshape(1, max_frames, C)
+            start = np.random.randint(max(self.noise.size - budget * C, 1))
             dt = self.compute_dtype
             args = (self._tensor(x, dt), self._tensor([x_length], torch.int32),
                     self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long))
-        o, _, y_mask, _ = self.synth.inference(
-            *args, length_scale=duration_rate, max_frames=max_frames, noise=noise,
-            dec_q8=self.dec_q8 if use_q8 else None)
-        # one read back: the frame count (exact in f32) rides in front of the
-        # waveform
-        with span("engine.to_host"):
-            out = torch.cat([y_mask.float().sum().reshape(1),
-                             o.float().reshape(-1)]).cpu().numpy()
-        y_frames = int(out[0])
-        self.counts["fused_frames_decoded"] += max_frames
-        if y_frames >= max_frames:  # the budget clipped the request
+        head = self.synth.inference_durations(*args, length_scale=duration_rate,
+                                              max_frames=budget)
+        with span("engine.durations"):
+            y_frames = int(head.y_lengths[0])
+        self.counts["fused_frames_budget"] += budget
+        if y_frames >= budget:  # the budget clipped the request
             self.counts["retried"] += 1
             with span("engine.retry"):
                 return self._two_phase(spkid, emo_vec, text, x_length, duration_rate)
+        # the budget is whole quanta, so the pad stays within it
+        y_pad = self._quantize(y_frames, self.frame_quantum)
+        noise = self._noise_dev[start:start + y_pad * C].reshape(1, y_pad, C)
+        o = self.synth.inference_decode(head, y_pad, noise=noise,
+                                        dec_q8=self.dec_q8 if use_q8 else None)[0]
+        self.counts["fused_frames_decoded"] += y_pad
         self.counts["fused_frames_served"] += y_frames
-        return out[1:1 + y_frames * self.hop_size], emo_vec
+        with span("engine.to_host"):
+            wav = o[0, :y_frames * self.hop_size, 0].float().cpu().numpy()
+        return wav, emo_vec
 
     @torch.inference_mode()
     def infer_stream(self, spkid: int, text: np.ndarray, emo=None, *,
@@ -475,7 +482,8 @@ class EmoVITS:
                      halo: int = 24):
         """Streaming synthesis: yields float32 waveform chunks whose
         concatenation is the two-phase output (`_infer_two_phase`, not the
-        fused default, whose noise slice spans the frame budget). Phase 1,
+        fused default, whose noise slice starts at a draw over the frame
+        budget). Phase 1,
         the alignment and the latent run once; the float decoder then runs
         over windows of chunk_frames (default the frame quantum, so the noise
         slice is the two-phase one) plus `halo` frames on each side, and each

@@ -2,7 +2,8 @@
 text encoder, duration predictor, posterior encoder, coupling flows, the
 HiFi-GAN decoder in float and int8, the training graph `forward`, the
 two-phase serving entry points `infer_p1` / `infer_p2` / `quantize_decoder`,
-the one-graph `inference` of the fused serving path, and `stream_decode`.
+the one-graph `inference` and its two halves, which the fused serving path
+runs with a read of the frame count between them, and `stream_decode`.
 
 Tensors are channel-last (B, T, C) at every public function, as in the JAX
 package. The decoder runs unpacked: the JAX package's phase packing is a TPU
@@ -19,7 +20,7 @@ noise as tensors (`draw_noise`), so the same noise can reach both packages.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -57,6 +58,19 @@ def stream_windows(n_frames: int, chunk: int, halo: int, limit: Optional[int] = 
     limit = n_frames if limit is None else limit
     for s in range(0, n_frames, chunk):
         yield s, max(0, s - halo), min(limit, s + chunk + halo), min(chunk, n_frames - s)
+
+
+class InferenceHead(NamedTuple):
+    """What `Synthesizer.inference_durations` leaves on the device for
+    `inference_decode`: each token's frames w_ceil (B, T_x) in float32, the
+    frame counts y_lengths (B,) int32, the prior's m_p and logs_p (B, T_x,
+    inter), the speaker vector g (B, gin) and x_mask (B, T_x, 1)."""
+    w_ceil: torch.Tensor
+    y_lengths: torch.Tensor
+    m_p: torch.Tensor
+    logs_p: torch.Tensor
+    g: torch.Tensor
+    x_mask: torch.Tensor
 
 
 class DurationPredictor(nn.Module):
@@ -571,15 +585,29 @@ class Synthesizer(nn.Module):
                   noise: Optional[torch.Tensor] = None, dec_q8: Optional[Dict] = None,
                   generator: Optional[torch.Generator] = None):
         """One-graph synthesis with a static frame budget (vits_tpu
-        Synthesizer.inference, synthesizer.py:734): text encoder, durations,
-        the alignment built on the device by `generate_path`, the prior
-        expanded, the reversed flows and the float decoder or, with `dec_q8`,
-        the int8 one. x (B, T_x, text_channels), x_lengths (B,) int, emo
-        (B, 1024), sid (B,) int. noise: pre-scaled prior noise (B,
+        Synthesizer.inference, synthesizer.py:734): `inference_durations`
+        then `inference_decode` over max_frames frames. Text encoder,
+        durations, the alignment built on the device by `generate_path`, the
+        prior expanded, the reversed flows and the float decoder or, with
+        `dec_q8`, the int8 one. x (B, T_x, text_channels), x_lengths (B,)
+        int, emo (B, 1024), sid (B,) int. noise: pre-scaled prior noise (B,
         max_frames, inter); when None it is drawn from `generator` and scaled
         by noise_scale. Output lengths are clipped to max_frames. Nothing
         here reads a value back to the host. Returns (o (B, max_frames * hop,
         1), attn, y_mask, (z, z_p, m_p_e, logs_p_e))."""
+        head = self.inference_durations(x, x_lengths, emo, sid, length_scale=length_scale,
+                                        max_frames=max_frames)
+        return self.inference_decode(head, max_frames, noise_scale=noise_scale, noise=noise,
+                                     dec_q8=dec_q8, generator=generator)
+
+    @torch.no_grad()
+    def inference_durations(self, x, x_lengths, emo, sid, length_scale: float = 1.0,
+                            max_frames: int = 1000) -> InferenceHead:
+        """The first half of `inference`, on the device: the text encoder,
+        the duration predictor, each token's frames (ceil of its duration at
+        length_scale) and each utterance's frame count, clipped to
+        max_frames. A caller that reads `y_lengths` back to the host can pick
+        the frame count `inference_decode` runs over."""
         g = self.emb_g(sid)
         x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
         x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g)
@@ -589,8 +617,23 @@ class Synthesizer(nn.Module):
             w_ceil = torch.ceil((torch.exp(logw) * x_mask).float() * length_scale)[..., 0]
             y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
             y_lengths = y_lengths.clamp(max=max_frames)
-            y_mask = sequence_mask(y_lengths, max_frames)[..., None].to(x.dtype)
-            attn = generate_path(w_ceil, y_mask * x_mask.transpose(1, 2)).to(x.dtype)
+        return InferenceHead(w_ceil, y_lengths, m_p, logs_p, g, x_mask)
+
+    @torch.no_grad()
+    def inference_decode(self, head: InferenceHead, frames: int, noise_scale: float = 1.0,
+                         noise: Optional[torch.Tensor] = None, dec_q8: Optional[Dict] = None,
+                         generator: Optional[torch.Generator] = None):
+        """The second half of `inference` over `frames` frames (at least
+        each utterance's `head.y_lengths`): the alignment by `generate_path`,
+        the prior expanded, the reversed flows and the float or int8 decoder.
+        Every layer masks the frames past an utterance's count, so its
+        samples do not depend on how far past it `frames` reaches. noise:
+        (B, frames, inter), as `inference` takes it."""
+        w_ceil, y_lengths, m_p, logs_p, g, x_mask = head
+        dt = x_mask.dtype
+        with span("synth.align"):
+            y_mask = sequence_mask(y_lengths, frames)[..., None].to(dt)
+            attn = generate_path(w_ceil, y_mask * x_mask.transpose(1, 2)).to(dt)
             m_p_e = torch.einsum("byx,bxc->byc", attn, m_p)
             logs_p_e = torch.einsum("byx,bxc->byc", attn, logs_p)
             if noise is None:
