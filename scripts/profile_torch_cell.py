@@ -17,9 +17,11 @@ cell it also takes the difference of the engine's `counts` over the window
 and sets it beside the benchmark's own reckoning from the served lengths and
 the fused budget's rule (`benchmark/harness/check.py::fused_budget`), with the
 fused passes' served frames over their decoded ones and their decoded frames
-(whole 64-frame quanta) over their budgets. The
-last line of standard output is one JSON object: "program" (these numbers)
-and "result" (the benchmark's line). Needs a CUDA device.
+(whole 64-frame quanta) over their budgets. The decoders' device ms a call
+is given inclusive of their upsample stages' spans (`dec_ms.synth`) and by
+stage (`dec_stage_ms.synth`). The last line of standard output is one JSON
+object: "program" (these numbers) and "result" (the benchmark's line). Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +49,20 @@ def span_ms(charged, names, per):
     if not n:
         return None
     return 1e3 * sum(charged["span_device_s"].get(k, 0.0) for k in names) / n
+
+
+DECODERS = ("synth.decoder", "synth.decoder_q8")
+
+
+def decoder_ms(charged):
+    """The decoders' device ms a call inclusive of their upsample stages'
+    spans ("<decoder>.stage<i>"; `charge` gives each operation to the
+    innermost span alone), comparable with the figures taken before the
+    decoders had stage spans, and each stage's; None where no decoder ran."""
+    stages = sorted(k for k in charged["span_device_s"]
+                    if k.startswith(tuple(d + "." for d in DECODERS)))
+    return (span_ms(charged, [*DECODERS, *stages], DECODERS),
+            {k: span_ms(charged, [k], DECODERS) for k in stages} or None)
 
 
 def outside_counts(rec, hps):
@@ -157,9 +173,8 @@ def report(seen) -> dict:
         "enc_ms.synth": span_ms(c, ["synth.text_encoder", "synth.duration"],
                                 ["synth.text_encoder"]),
         "flow_ms.synth": span_ms(c, ["synth.flow"], ["synth.flow"]),
-        "dec_ms.synth": span_ms(c, ["synth.decoder", "synth.decoder_q8"],
-                                ["synth.decoder", "synth.decoder_q8"]),
     }
+    out["dec_ms.synth"], out["dec_stage_ms.synth"] = decoder_ms(c)
     counts, rec = seen["counts"], seen["rec"] or {}
     if counts:
         out["counts"] = counts

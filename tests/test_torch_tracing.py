@@ -8,7 +8,10 @@ nesting the layers have; the waveform is the same bit for bit with the
 profiler on and off; `EmoVITS.counts` follows the fused budget's rule
 (`benchmark/harness/check.py::fused_budget`, the rule the benchmark reckons
 retries by) and counts the frames decoded in whole frame quanta; a
-`torch.export` of either serving phase holds no profiler op.
+`torch.export` of either serving phase holds no profiler op. A decoder
+(ResBlock1 or ResBlock2) opens one span an upsample stage inside its own,
+and `scripts/profile_torch_cell.py` gives the decoder's device time
+inclusive of its stages'.
 
 `profiling.charge` on kineto-like events: a device operation is charged
 through its launch call's correlation id to the innermost span open on the
@@ -19,8 +22,10 @@ The deployment is the port's own: `init_weights` from a seeded generator,
 the duration predictor's output bias at log 3 (a token lasts ~5 frames).
 """
 
+import importlib.util
 import json
 import math
+import os
 import types
 
 import numpy as np
@@ -33,7 +38,7 @@ from benchmark.tests.tiny import TINY_CONFIG
 from vits_tpu_torch.config import get_hparams_from_file
 from vits_tpu_torch.convert import params_to_jax
 from vits_tpu_torch.infer import EmoVITS
-from vits_tpu_torch.models.synthesizer import Synthesizer
+from vits_tpu_torch.models.synthesizer import Generator, Synthesizer
 from vits_tpu_torch.nn.core import init_weights
 from vits_tpu_torch.ops.seq import infer_path
 from vits_tpu_torch.serve.aot import _Phase
@@ -90,8 +95,19 @@ def _tree(prof):
     return out
 
 
-def _nest(depth, names):
-    return [(depth, n) for n in names]
+DECODERS = ("synth.decoder", "synth.decoder_q8")
+STAGES = len(TINY_CONFIG["model"]["upsample_rates"])
+
+
+def _nest(depth, names, stages=STAGES):
+    """(depth, name) for each of `names`, a decoder's upsample stages one
+    deeper after it."""
+    out = []
+    for n in names:
+        out.append((depth, n))
+        if n in DECODERS:
+            out += [(depth + 1, f"{n}.stage{i}") for i in range(stages)]
+    return out
 
 
 MODEL = ["synth.text_encoder", "synth.duration"]
@@ -217,6 +233,69 @@ def test_exported_phase_holds_no_profiler_op(deploy, phase):
         ep = torch.export.export(_Phase(synth, phase), args, strict=False)
     targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
     assert targets and not [t for t in targets if "profiler" in t or "record_function" in t]
+
+
+def _profile_cell_script():
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "scripts", "profile_torch_cell.py")
+    spec = importlib.util.spec_from_file_location("profile_torch_cell", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _launched(prof):
+    """The capture's spans, with a 1 us device operation launched at the
+    start of each of its torch ops (a CPU capture has no device timeline)."""
+    evs = []
+    for e in prof.profiler.kineto_results.events():
+        name, start, dur = e.name(), e.start_ns(), e.duration_ns()
+        if name.startswith(profiling.SPAN_PREFIX):
+            evs.append(types.SimpleNamespace(
+                name=lambda n=name: n, start_ns=lambda s=start: s, duration_ns=lambda d=dur: d,
+                correlation_id=lambda: 0, start_thread_id=lambda: 1,
+                device_type=lambda: "DeviceType.CPU"))
+        elif name.startswith("aten::"):
+            k = len(evs) + 1
+            evs.append(types.SimpleNamespace(
+                name=lambda: "cudaLaunchKernel", start_ns=lambda s=start: s,
+                duration_ns=lambda: 1, correlation_id=lambda k=k: k, start_thread_id=lambda: 1,
+                device_type=lambda: "DeviceType.CPU"))
+            evs.append(types.SimpleNamespace(
+                name=lambda k=k: f"op{k}", start_ns=lambda k=k: 2 * 10 ** 12 + 2000 * k,
+                duration_ns=lambda: 1000, correlation_id=lambda k=k: k,
+                start_thread_id=lambda: 0, device_type=lambda: "DeviceType.CUDA"))
+    return evs
+
+
+@pytest.mark.parametrize("resblock", ["1", "2"])
+def test_decoder_stage_spans_make_up_the_decoder(resblock):
+    """A decoder of four upsample stages (the VCTK configuration's pattern at
+    TINY widths), ResBlock1 or ResBlock2: each call opens one span a stage
+    inside "synth.decoder". With a 1 us operation launched at each torch op
+    of the capture, `scripts/profile_torch_cell.py`'s inclusive decoder time
+    is the decoder's own time plus its stages', which is all that was
+    launched inside the decoder."""
+    dec = init_weights(Generator(8, resblock, [3], [[1, 3]], [8, 8, 2, 2], 256, [16, 16, 4, 4],
+                                 gin_channels=16), torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    x, g = torch.randn(1, 4, 8, generator=gen), torch.randn(1, 16, generator=gen)
+    with torch.no_grad():
+        _, prof = _profiled(lambda: [dec(x, g=g, x_mask=torch.ones(1, 4, 1)) for _ in range(2)])
+    assert _tree(prof) == _nest(0, ["synth.decoder"] * 2, stages=4)
+
+    evs = _launched(prof)
+    charged = profiling.charge(evs)
+    inclusive, stages = _profile_cell_script().decoder_ms(charged)
+    assert sorted(stages) == [f"synth.decoder.stage{i}" for i in range(4)]
+    assert all(v > 0 for v in stages.values())
+    own = 1e3 * charged["span_device_s"]["synth.decoder"] / 2
+    assert inclusive == pytest.approx(own + sum(stages.values()), rel=1e-12)
+    decoders = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in evs
+                if e.name() == "vits:synth.decoder"]
+    inside = sum(1 for e in evs if e.name() == "cudaLaunchKernel"
+                 and any(a <= e.start_ns() <= b for a, b in decoders))
+    assert inclusive == pytest.approx(1e-3 * inside / 2, rel=1e-12)
 
 
 # ---------------------------------------------------------------------------

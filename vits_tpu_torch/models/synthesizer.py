@@ -251,7 +251,9 @@ class Generator(nn.Module):
     float path (with optional calibration record), `forward_q8` the int8
     path over `quantize`'s params, for ResBlock2 decoders only: `calibrate`,
     `quantize` and `forward_q8` of a ResBlock1 decoder raise, as the JAX
-    package's `quantize` does."""
+    package's `quantize` does. Each stage runs in a span of its own,
+    "synth.decoder.stage<i>" (int8: "synth.decoder_q8.stage<i>"), inside the
+    decoder's."""
 
     def __init__(self, initial_channel, resblock, resblock_kernel_sizes,
                  resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
@@ -296,20 +298,21 @@ class Generator(nn.Module):
             x = self.conv_pre(x)
             m = x_mask
             for i in range(self.num_upsamples):
-                x = leaky_relu(x, LRELU_SLOPE)
-                if m is not None:
-                    x = x * m
-                    m = m.repeat_interleave(self.upsample_rates[i], dim=1)
-                if record is not None:
-                    record[f"up{i}_in"] = Q.amax(x)
-                x = _mask(self.ups[str(i)](x), m)
-                xs = None
-                for j in range(self.num_kernels):
-                    idx = i * self.num_kernels + j
-                    y = self.resblocks[str(idx)](x, g, x_mask=m, record=record,
-                                                 rec_prefix=f"rb{idx}_")
-                    xs = y if xs is None else xs + y
-                x = xs / self.num_kernels
+                with span(f"synth.decoder.stage{i}"):
+                    x = leaky_relu(x, LRELU_SLOPE)
+                    if m is not None:
+                        x = x * m
+                        m = m.repeat_interleave(self.upsample_rates[i], dim=1)
+                    if record is not None:
+                        record[f"up{i}_in"] = Q.amax(x)
+                    x = _mask(self.ups[str(i)](x), m)
+                    xs = None
+                    for j in range(self.num_kernels):
+                        idx = i * self.num_kernels + j
+                        y = self.resblocks[str(idx)](x, g, x_mask=m, record=record,
+                                                     rec_prefix=f"rb{idx}_")
+                        xs = y if xs is None else xs + y
+                    x = xs / self.num_kernels
             x = leaky_relu(x, 0.01)
             xm = _mask(x, m)
             if record is not None:
@@ -328,24 +331,25 @@ class Generator(nn.Module):
                             q["b"], padding=3, out_dtype=x.dtype)
             m = x_mask
             for i in range(self.num_upsamples):
-                x = leaky_relu(x, LRELU_SLOPE)
-                if m is not None:
-                    x = x * m
-                    m = m.repeat_interleave(self.upsample_rates[i], dim=1)
-                q = qp["ups"].get(str(i))
-                if q is not None:
-                    x = Q.conv_transpose1d_q8(Q.quantize_act(x, q["s_in"]), q["wsub"], q["dmin"],
-                                              q["dmax"], q["s_in"], q["s_w"], q["b"],
-                                              out_dtype=x.dtype)
-                else:  # not length-preserving: the JAX package runs this stage in float
-                    x = self.ups[str(i)](x)
-                x = _mask(x, m)
-                xs = None
-                for j in range(self.num_kernels):
-                    idx = str(i * self.num_kernels + j)
-                    y = self.resblocks[idx].apply_q8(qp["resblocks"][idx], x, g, x_mask=m)
-                    xs = y if xs is None else xs + y
-                x = xs / self.num_kernels
+                with span(f"synth.decoder_q8.stage{i}"):
+                    x = leaky_relu(x, LRELU_SLOPE)
+                    if m is not None:
+                        x = x * m
+                        m = m.repeat_interleave(self.upsample_rates[i], dim=1)
+                    q = qp["ups"].get(str(i))
+                    if q is not None:
+                        x = Q.conv_transpose1d_q8(Q.quantize_act(x, q["s_in"]), q["wsub"],
+                                                  q["dmin"], q["dmax"], q["s_in"], q["s_w"],
+                                                  q["b"], out_dtype=x.dtype)
+                    else:  # not length-preserving: the JAX package runs this stage in float
+                        x = self.ups[str(i)](x)
+                    x = _mask(x, m)
+                    xs = None
+                    for j in range(self.num_kernels):
+                        idx = str(i * self.num_kernels + j)
+                        y = self.resblocks[idx].apply_q8(qp["resblocks"][idx], x, g, x_mask=m)
+                        xs = y if xs is None else xs + y
+                    x = xs / self.num_kernels
             x = leaky_relu(x, 0.01)
             xm = _mask(x, m)
             q = qp["post"]

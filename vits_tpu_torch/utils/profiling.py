@@ -5,10 +5,10 @@ reduction of a capture to device time and idle gaps by span (`charge`).
 Spans are `torch.profiler.record_function` ranges named "vits:<layer>",
 opened at the layer boundaries of the synthesis path (the engine's request,
 its host preparation, read backs and retry; the text encoder, the duration
-predictor, the alignment, the flows and the decoders). They exist only while
-a profiler records, so they land in the same trace, on the same host clock,
-as the CUDA kernels, copies and launch calls; otherwise `span` returns one
-shared no-op context and costs a flag test."""
+predictor, the alignment, the flows, the decoders and each of their upsample
+stages). They exist only while a profiler records, so they land in the same
+trace, on the same host clock, as the CUDA kernels, copies and launch calls;
+otherwise `span` returns one shared no-op context and costs a flag test."""
 
 from __future__ import annotations
 
