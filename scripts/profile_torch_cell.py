@@ -17,7 +17,11 @@ cell it also takes the difference of the engine's `counts` over the window
 and sets it beside the benchmark's own reckoning from the served lengths and
 the fused budget's rule (`benchmark/harness/check.py::fused_budget`), with the
 fused passes' served frames over their decoded ones and their decoded frames
-(whole 64-frame quanta) over their budgets. The decoders' device ms a call
+(whole 64-frame quanta) over their budgets, the share of requests whose head
+and flows replayed CUDA graphs (`head_ms.synth` is a replayed head's device
+ms, beside the eager `enc_ms.synth`), the host's launch calls, the device
+operations and the device ms a request (`graph_captures` in the counts' difference must read 0: no capture
+in the window). The decoders' device ms a call
 is given inclusive of their upsample stages' spans (`dec_ms.synth`) and by
 stage (`dec_stage_ms.synth`). The last line of standard output is one JSON
 object: "program" (these numbers) and "result" (the benchmark's line). Needs
@@ -89,6 +93,36 @@ def fused_shares(counts) -> dict:
             / max(counts["fused_frames_budget"], 1)}
 
 
+def per_request(charged, counts) -> dict:
+    """A serving window's numbers a request: the CUDA graphs' replay shares
+    (every request of a serving cell takes the fused pass first: the head's
+    replays over the requests, the flows' over those not served again; 0
+    where the engine has no graphs), the launch calls, and the device ms of
+    every operation the trace holds (the figure to hold against an engine
+    without graphs: lower means the profiler missed graph kernels)."""
+    n = max(counts["requests"], 1)
+    device_s = (sum(charged["span_device_s"].values()) + charged["unspanned_device_s"]
+                + charged["unmatched_device_s"])
+    return {"graph_replay_share.head": 100.0 * counts.get("graph_replays_head", 0) / n,
+            "graph_replay_share.flow": 100.0 * counts.get("graph_replays_flow", 0)
+            / max(counts["requests"] - counts["retried"], 1),
+            "launch_calls_per_request": sum(charged["host_launch_calls"].values()) / n,
+            "device_ops_per_request": sum(charged["launch_calls"].values()) / n,
+            "device_ms_per_request": 1e3 * device_s / n}
+
+
+def host_launch_calls(events) -> dict:
+    """{launch call: count} of the host's launch calls in a capture (a
+    `cudaGraphLaunch` once a replay, where `charge`'s "launch_calls" counts
+    the operations each kind of call put on the card)."""
+    from vits_tpu_torch.utils import profiling
+    out = {}
+    for ev in events:
+        if not profiling.on_device(ev) and profiling.LAUNCH_CALL.match(ev.name()):
+            out[ev.name()] = out.get(ev.name(), 0) + 1
+    return out
+
+
 def kernel_launch_calls(events):
     """{kernel: {launch call: count}} for the KERNELS found in a capture,
     matched through the correlation id ("none" where no call was found)."""
@@ -120,6 +154,7 @@ def traced_run(run):
     def reduce_and_charge(events, window_s):
         events = list(events)
         seen["charged"] = profiling.charge(events, prefixes=(profiling.SPAN_PREFIX, BENCH_PREFIX))
+        seen["charged"]["host_launch_calls"] = host_launch_calls(events)
         seen["kernel_calls"] = kernel_launch_calls(events)
         return reduce_events(events, window_s)
 
@@ -172,13 +207,16 @@ def report(seen) -> dict:
             v for k, v in c["idle_s"].items() if k.startswith(ours)) / idle_total,
         "enc_ms.synth": span_ms(c, ["synth.text_encoder", "synth.duration"],
                                 ["synth.text_encoder"]),
+        "head_ms.synth": span_ms(c, ["synth.head"], ["synth.head"]),
         "flow_ms.synth": span_ms(c, ["synth.flow"], ["synth.flow"]),
     }
     out["dec_ms.synth"], out["dec_stage_ms.synth"] = decoder_ms(c)
     counts, rec = seen["counts"], seen["rec"] or {}
     if counts:
         out["counts"] = counts
-        out["retry_share.serve"] = 100.0 * counts["retried"] / max(counts["requests"], 1)
+        n = max(counts["requests"], 1)
+        out["retry_share.serve"] = 100.0 * counts["retried"] / n
+        out.update(per_request(c, counts))
         shares = fused_shares(counts)
         out["fused_served.serve"] = shares["fused_served"]
         out["fused_decoded_of_budget"] = shares["fused_decoded_of_budget"]

@@ -111,6 +111,8 @@ def _nest(depth, names, stages=STAGES):
 
 
 MODEL = ["synth.text_encoder", "synth.duration"]
+# a CPU engine captures no CUDA graph and replays none
+NO_GRAPHS = {"graph_replays_head": 0, "graph_replays_flow": 0, "graph_captures": 0}
 # the fused pass up to the read of its frame count, then the rest of it
 FUSED_HEAD = _nest(1, ["engine.prep", *MODEL, "synth.align", "engine.durations"])
 FUSED = FUSED_HEAD + _nest(1, ["synth.align", "synth.flow", "synth.decoder", "engine.to_host"])
@@ -167,7 +169,8 @@ def test_retried_request_spans_and_counts(deploy, monkeypatch):
                            + _nest(2, TWO_PHASE))
     assert model.counts == {"requests": 1, "retried": 1,
                             "fused_frames_budget": fused_budget(LONG, model.hps, 1.0),
-                            "fused_frames_decoded": 0, "fused_frames_served": 0}
+                            "fused_frames_decoded": 0, "fused_frames_served": 0,
+                            **NO_GRAPHS}
     assert len(wav) // hop > fused_budget(LONG, model.hps, 1.0)
 
     spk, text, emo = _request(FEW, seed=4)
@@ -179,7 +182,8 @@ def test_retried_request_spans_and_counts(deploy, monkeypatch):
         "requests": 2, "retried": 1,
         "fused_frames_budget": fused_budget(LONG, model.hps, 1.0) + fused_budget(
             FEW, model.hps, 1.0),
-        "fused_frames_decoded": -(-frames // q) * q, "fused_frames_served": frames}
+        "fused_frames_decoded": -(-frames // q) * q, "fused_frames_served": frames,
+        **NO_GRAPHS}
 
 
 def test_stream_spans(deploy):

@@ -14,7 +14,12 @@ noise ring, and three synthesis paths:
   the budget is served again by the exact two-phase path. It decodes in
   float unless `VITS_TPU_FUSED_Q8=1` (read per call) and the int8 decoder is
   frozen. `VITS_TPU_FUSED=0` (read at construction) routes `infer` to
-  two-phase.
+  two-phase. On CUDA its two launch-bound halves replay CUDA graphs
+  captured when the engine is built (`serve/graphs.py`): the head (text
+  encoder, durations, frame count) one a text pad, the reversed flows one
+  a frame pad; the alignment and the decoder stay eager. The graphs' static
+  buffers serve one request at a time (the socket server holds a lock
+  around the engine).
 - `_infer_two_phase`: phase 1 encodes text and predicts durations on the
   device; the host turns durations into the alignment and slices the noise
   ring; phase 2 runs the flows and the decoder.
@@ -59,8 +64,10 @@ request's number), `engine.prep` (resolution, the host arrays and their
 copies to the device), `engine.durations` (the read back of the durations,
 two-phase, or of the frame count, fused), `engine.to_host` (the waveform's
 read back), `engine.retry` (a fused pass served again two-phase), and the
-model's own (`synth.*`). `EmoVITS.counts` counts the requests, the retries
-and the fused passes' budgeted, decoded and served frames, always.
+model's own (`synth.*`; `synth.head` around a head's graph replay,
+`synth.flow` around the flows'). `EmoVITS.counts` counts the requests, the
+retries, the fused passes' budgeted, decoded and served frames, and the
+graphs replayed and captured, always.
 """
 
 from __future__ import annotations
@@ -219,10 +226,22 @@ class EmoVITS:
         # requests resolved (every path), fused passes served again
         # two-phase, the fused passes' frame budgets, the frames their flows
         # and decoder ran over (whole frame quanta; none for a pass served
-        # again) and the frames they served; never reset: callers take the
-        # differences of snapshots
+        # again), the frames they served, the heads and flows replayed from
+        # CUDA graphs and the graphs captured (at construction); never
+        # reset: callers take the differences of snapshots
         self.counts = {"requests": 0, "retried": 0, "fused_frames_budget": 0,
-                       "fused_frames_decoded": 0, "fused_frames_served": 0}
+                       "fused_frames_decoded": 0, "fused_frames_served": 0,
+                       "graph_replays_head": 0, "graph_replays_flow": 0, "graph_captures": 0}
+
+        # the fused pass's launch-bound halves as CUDA graphs, one a pad
+        # (`serve/graphs.py`); the CPU, and an engine that serves AOT
+        # programs, run them eagerly
+        self._graphs = None
+        if self.device.type == "cuda" and self.aot is None:
+            from vits_tpu_torch.serve.graphs import HalfGraphs
+            self._graphs = HalfGraphs(self.synth, self.device, self.compute_dtype,
+                                      self.text_channels, *self.graph_pads())
+            self.counts["graph_captures"] = self._graphs.captures
 
     # ---------------- resources ----------------
     def _load_spkid_mapping(self, mapfn: str):
@@ -382,6 +401,15 @@ class EmoVITS:
         budget = self._quantize(max(int(x_length * fpt * duration_rate), q), q)
         return min(budget, (self.ring_frames // q) * q)
 
+    def graph_pads(self):
+        """(text pads, frame pads) the fused pass can take: each text pad
+        `_quantize` gives a token count up to max_text_len, and each whole
+        frame quantum up to the largest budget `fused_frames` can give (the
+        ring's whole quanta), since a served count lies below its budget."""
+        tq, fq = self.text_quantum, self.frame_quantum
+        text = sorted({min(p, self.max_text_len) for p in range(tq, self.max_text_len + tq, tq)})
+        return text, list(range(fq, (self.ring_frames // fq) * fq + 1, fq))
+
     @torch.inference_mode()
     def infer(self, spkid: int, text: np.ndarray, emo=None, *,
               duration_rate: float = 1.0):
@@ -454,10 +482,21 @@ class EmoVITS:
             x[0, :x_length] = text[:x_pad]
             start = np.random.randint(max(self.noise.size - budget * C, 1))
             dt = self.compute_dtype
-            args = (self._tensor(x, dt), self._tensor([x_length], torch.int32),
-                    self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long))
-        head = self.synth.inference_durations(*args, length_scale=duration_rate,
-                                              max_frames=budget)
+            graphs = self._graphs
+            head_graph = graphs.heads.get(x_pad) if graphs else None
+            if head_graph is None:
+                args = (self._tensor(x, dt), self._tensor([x_length], torch.int32),
+                        self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long))
+            else:
+                args = (torch.as_tensor(x, dtype=dt), x_length,
+                        torch.as_tensor(emo_vec[None], dtype=dt), spkid, duration_rate)
+        if head_graph is None:
+            head = self.synth.inference_durations(*args, length_scale=duration_rate,
+                                                  max_frames=budget)
+        else:  # the frame count unclamped: compared with the budget below
+            with span("synth.head"):
+                head = head_graph(*args)
+            self.counts["graph_replays_head"] += 1
         with span("engine.durations"):
             y_frames = int(head.y_lengths[0])
         self.counts["fused_frames_budget"] += budget
@@ -468,7 +507,10 @@ class EmoVITS:
         # the budget is whole quanta, so the pad stays within it
         y_pad = self._quantize(y_frames, self.frame_quantum)
         noise = self._noise_dev[start:start + y_pad * C].reshape(1, y_pad, C)
-        o = self.synth.inference_decode(head, y_pad, noise=noise,
+        flow = graphs.flow_at(y_pad) if graphs else None
+        if flow is not None:
+            self.counts["graph_replays_flow"] += 1
+        o = self.synth.inference_decode(head, y_pad, noise=noise, flow=flow,
                                         dec_q8=self.dec_q8 if use_q8 else None)[0]
         self.counts["fused_frames_decoded"] += y_pad
         self.counts["fused_frames_served"] += y_frames

@@ -20,7 +20,7 @@ noise as tensors (`draw_noise`), so the same noise can reach both packages.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -605,13 +605,14 @@ class Synthesizer(nn.Module):
                                      dec_q8=dec_q8, generator=generator)
 
     @torch.no_grad()
-    def inference_durations(self, x, x_lengths, emo, sid, length_scale: float = 1.0,
-                            max_frames: int = 1000) -> InferenceHead:
+    def inference_durations(self, x, x_lengths, emo, sid, length_scale=1.0,
+                            max_frames: Optional[int] = 1000) -> InferenceHead:
         """The first half of `inference`, on the device: the text encoder,
         the duration predictor, each token's frames (ceil of its duration at
-        length_scale) and each utterance's frame count, clipped to
-        max_frames. A caller that reads `y_lengths` back to the host can pick
-        the frame count `inference_decode` runs over."""
+        length_scale, a float or a 0-d float32 tensor) and each utterance's
+        frame count, clipped to max_frames unless it is None. A caller that
+        reads `y_lengths` back to the host can pick the frame count
+        `inference_decode` runs over."""
         g = self.emb_g(sid)
         x_mask = sequence_mask(x_lengths, x.shape[1])[..., None].to(x.dtype)
         x_h, m_p, logs_p = self.enc_p(x, x_mask, emo=emo, g=g)
@@ -620,19 +621,23 @@ class Synthesizer(nn.Module):
             # the rate applies in f32, as the JAX engine passes it (an f32 scalar)
             w_ceil = torch.ceil((torch.exp(logw) * x_mask).float() * length_scale)[..., 0]
             y_lengths = torch.sum(w_ceil, dim=-1).clamp(min=1.0).to(torch.int32)
-            y_lengths = y_lengths.clamp(max=max_frames)
+            if max_frames is not None:
+                y_lengths = y_lengths.clamp(max=max_frames)
         return InferenceHead(w_ceil, y_lengths, m_p, logs_p, g, x_mask)
 
     @torch.no_grad()
     def inference_decode(self, head: InferenceHead, frames: int, noise_scale: float = 1.0,
                          noise: Optional[torch.Tensor] = None, dec_q8: Optional[Dict] = None,
-                         generator: Optional[torch.Generator] = None):
+                         generator: Optional[torch.Generator] = None,
+                         flow: Optional[Callable] = None):
         """The second half of `inference` over `frames` frames (at least
         each utterance's `head.y_lengths`): the alignment by `generate_path`,
         the prior expanded, the reversed flows and the float or int8 decoder.
         Every layer masks the frames past an utterance's count, so its
         samples do not depend on how far past it `frames` reaches. noise:
-        (B, frames, inter), as `inference` takes it."""
+        (B, frames, inter), as `inference` takes it. flow: what runs the
+        reversed flows, called as `self.flow` is (the serving engine passes
+        a CUDA graph's replay of them)."""
         w_ceil, y_lengths, m_p, logs_p, g, x_mask = head
         dt = x_mask.dtype
         with span("synth.align"):
@@ -644,7 +649,7 @@ class Synthesizer(nn.Module):
                 noise = torch.randn(m_p_e.shape, generator=generator, device=m_p_e.device,
                                     dtype=m_p_e.dtype) * noise_scale
             z_p = m_p_e + noise.to(m_p_e.dtype) * torch.exp(logs_p_e)
-        z = self.flow(z_p, y_mask, g=g)
+        z = (flow or self.flow)(z_p, y_mask, g=g)
         if dec_q8 is not None:
             o = self.dec.forward_q8(dec_q8, z * y_mask, g=g, x_mask=y_mask)
         else:
