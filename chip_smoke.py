@@ -130,7 +130,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 against the eager two-phase float decode at the same shapes
                 and noise (atol 1e-4), one request past the text buckets
                 served eagerly, the latency of AOT against eager two-phase
-                float in turns, the capture seconds of each bucket; the
+                float in turns, the buckets captured; the
                 deployment reloaded from save_torch_checkpoint's .pth, the
                 same waveform; K1 at the 12 adapt chains of a 256-frame
                 request, its time against its bound;
@@ -2268,7 +2268,7 @@ def phase_sat(dev, workdir):
     correlating with its float decode), through EmoVITS(aot=True) (in-bucket
     requests against the eager two-phase float decode at the same shapes
     and noise, one request past the buckets, the latency of both in turns,
-    the capture seconds of each bucket), and reloaded from a `.pth` written
+    the buckets captured), and reloaded from a `.pth` written
     by save_torch_checkpoint; K1 timed at the 12 adapt-config chains of a
     CHAIN_FRAMES-frame request. Returns (K1 launches, K2 launches, K2's and
     K1's largest differences from their plain versions)."""
@@ -2459,8 +2459,7 @@ def phase_sat(dev, workdir):
         f"atol {AOT_ATOL}); a {len(long_text)}-token request past the text buckets went eager "
         f"(max_abs_err {err_long:.3e} against the eager engine, no new graph); "
         f"{n_graphs} bucket graphs captured: "
-        + ", ".join(f"{'/'.join(map(str, k))} {v:.2f} s" for k, v in
-                    sorted(bundle.capture_s.items())))
+        + ", ".join("/".join(map(str, k)) for k in sorted(bundle.graphs)))
     lat = {"aot": [], "eager": []}
     for rnd in range(AOT_ROUNDS):
         for i, (spk, text, emo, rate) in enumerate(areqs):

@@ -1,26 +1,29 @@
-"""The fused serving path's CUDA graphs (`vits_tpu_torch/serve/graphs.py`)
-at TINY.
+"""The fused serving path's halves (`vits_tpu_torch/serve/graphs.py`) at
+TINY.
 
-On the CPU nothing is captured: the engine serves today's eager code and
-counts no replay and no capture; `HalfGraphs` built on the CPU runs each
-half's function on its static inputs, which puts the graph path's wiring
-(the static inputs, the unclamped frame count compared with the budget on
-the host) through the engine against its eager path, at, under and over a
-request's budget; and the pads captured are those the fused pass can reach.
+The engine serves every fused pass through `HalfGraphs`, on every device. On
+the CPU nothing is captured: the entries run their functions on their static
+inputs, and the engine counts no replay and no capture. Its one path (the
+static inputs, the unclamped frame count compared with the budget on the
+host) is held to the benchmark's reference of a request at, under and over
+its budget; an empty text, whose pad 0 has no entry, fails in the text
+encoder; the entries equal the eager halves; and the pads built are those
+the fused pass can reach.
 
 Marked `cuda` (skipping without a CUDA device): the replayed halves equal
 the eager ones bit for bit at two text pads and two frame pads, one head
 graph gives two requests of its pad their own frame counts, and an engine
-with its graphs serves the waveforms of one without them, counting each
-replay. Run on the GPU machine with
-`python -m pytest --noconftest tests/test_torch_graphs.py -q`.
-"""
+with its graphs serves the waveforms of one whose `HalfGraphs` captured
+nothing, counting each replay. Run on the GPU machine with
+`python -m pytest --noconftest tests/test_torch_graphs.py -q`."""
 
 import numpy as np
 import pytest
 import torch
 
+from benchmark.harness.check import fused_budget, ref_request
 from benchmark.harness.common import hparams
+from benchmark.harness.serve import engine_ring
 from benchmark.harness.traffic import hps_of
 from benchmark.harness.weights import build_serving_model, write_checkpoint
 from benchmark.tests.tiny import TINY_CONFIG
@@ -35,9 +38,9 @@ GRAPH_COUNTS = ("graph_replays_head", "graph_replays_flow", "graph_captures")
 @pytest.fixture(scope="module")
 def deploy(tmp_path_factory):
     hps_dict = hparams(TINY_CONFIG)
-    model = build_serving_model(hps_of(hps_dict), SEED, torch.device("cpu"),
-                                TINY_CONFIG["assumed"])
-    return write_checkpoint(str(tmp_path_factory.mktemp("deploy")), model, hps_dict)
+    hps = hps_of(hps_dict)
+    model = build_serving_model(hps, SEED, torch.device("cpu"), TINY_CONFIG["assumed"])
+    return write_checkpoint(str(tmp_path_factory.mktemp("deploy")), model, hps_dict), hps, model
 
 
 @pytest.fixture(autouse=True)
@@ -64,72 +67,81 @@ def _head_args(model, spk, text, emo):
             model._tensor(emo[None], dt), model._tensor([spk], torch.long))
 
 
-def _frames(model, args, rate):
-    return int(model.synth.inference_durations(*args, length_scale=rate,
-                                               max_frames=None).y_lengths[0])
-
-
-def _rate_for(model, args, frames):
-    """The least duration rate (to float precision) at which the request
-    lasts `frames` frames."""
-    lo, hi = 1e-3, 64.0
-    for _ in range(60):
-        mid = (lo + hi) / 2
-        lo, hi = (lo, mid) if _frames(model, args, mid) >= frames else (mid, hi)
-    assert _frames(model, args, hi) == frames
-    return hi
-
-
 def test_cpu_engine_serves_eagerly(deploy):
-    """A CPU engine builds no graphs and counts no replay and no capture,
-    over a fused request and a retried one."""
-    model = EmoVITS(deploy, device="cpu")
-    assert model._graphs is None
+    """A CPU engine holds a `HalfGraphs` at every pad `graph_pads` gives,
+    none of its entries captured; it serves a fused request and a retried
+    one through those entries and counts no replay and no capture."""
+    model = EmoVITS(deploy[0], device="cpu")
+    graphs = model._graphs
+    assert isinstance(graphs, HalfGraphs) and graphs.captures == 0
+    assert (sorted(graphs.heads), sorted(graphs.flows)) == model.graph_pads()
+    assert all(e.graph is None for e in (*graphs.heads.values(), *graphs.flows.values()))
     for fpt in ("8", "1"):
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", fpt)
             np.random.seed(5)
             model.infer(*_request(64, seed=5))
     assert model.counts["requests"] == 2 and model.counts["retried"] == 1
+    assert model.counts["fused_frames_served"] > 0
     assert all(model.counts[k] == 0 for k in GRAPH_COUNTS)
+
+
+# (tokens, seed) of a request lasting 127, 128 and 129 frames at rate 1,
+# each token's duration at least 0.008 frames from a whole frame
+AROUND_TWO_QUANTA = {-1: (22, 38), 0: (22, 7), 1: (24, 11)}
 
 
 @pytest.mark.parametrize("offset", [-1, 0, 1], ids=["under", "at", "over"])
 def test_host_budget_check_retries_as_the_clamp_did(deploy, monkeypatch, offset):
     """A request lasting one frame under, exactly, or one frame over a
-    budget of two frame quanta, served by an eager engine (the budget clamp
-    inside the head) and by one whose head and flows run `HalfGraphs`'s
-    entries (the count unclamped, compared with the budget on the host):
-    the same retry, the same samples, a replay counted for each half that
-    ran."""
-    eager = EmoVITS(deploy, device="cpu")
-    graphed = EmoVITS(deploy, device="cpu")
-    q = eager.frame_quantum
-    budget = 2 * q
-    spk, text, emo = _request()
-    rate = _rate_for(eager, _head_args(eager, spk, text, emo), budget + offset)
-    monkeypatch.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", repr(budget / (TOKENS * rate)))
-    assert eager.fused_frames(TOKENS, rate) == budget
-    graphed._graphs = HalfGraphs(graphed.synth, "cpu", graphed.compute_dtype,
-                                 graphed.text_channels, [32], [q, budget])
-    wavs = []
-    for model in (eager, graphed):
-        np.random.seed(21)
-        wavs.append(model.infer(spk, text, emo, duration_rate=rate)[0])
+    budget of two frame quanta. The engine reads its frame count unclamped
+    and compares it with the budget on the host, so it serves the request by
+    the fused pass under the budget and again two-phase at and over it, as
+    a clamp inside the head did (a count clamped to the budget reaches it
+    exactly when the count does). The retry, the frame count and the
+    samples are held to the benchmark's reference of the request as the
+    engine serves it (`ref_request`)."""
+    ckpt, hps, ref = deploy
+    model = EmoVITS(ckpt, device="cpu")
+    budget = 2 * model.frame_quantum
+    n, seed = AROUND_TWO_QUANTA[offset]
+    fpt = (budget + 0.5) / n
+    monkeypatch.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", repr(fpt))
+    assert model.fused_frames(n) == fused_budget(n, hps, fpt) == budget
+    spk, text, emo = _request(n, seed)
+    r = {"tokens": n, "text": text, "emo": emo, "spk": spk, "np_seed": 21}
+    np.random.seed(r["np_seed"])
+    wav, _ = model.infer(spk, text, emo)
+    frames = len(wav) // model.hop_size
     retried = offset >= 0
-    assert eager.counts["retried"] == graphed.counts["retried"] == int(retried)
-    np.testing.assert_array_equal(wavs[1], wavs[0])
-    assert len(wavs[0]) // eager.hop_size == budget + offset
-    assert graphed.counts["graph_replays_head"] == 1
-    assert graphed.counts["graph_replays_flow"] == int(not retried)
-    assert graphed.counts["fused_frames_served"] == eager.counts["fused_frames_served"]
+    assert frames == budget + offset
+    assert model.counts["retried"] == int(retried)
+    assert model.counts["fused_frames_served"] == (0 if retried else frames)
+    ref_wav, gap = ref_request(ref, hps, engine_ring(hps), r, frames, fpt,
+                               torch.device("cpu"))
+    assert gap == 0.0 and len(ref_wav) == len(wav)
+    np.testing.assert_allclose(wav, ref_wav, atol=1e-5, rtol=0)
+
+
+def test_an_empty_text_fails_in_the_text_encoder(deploy):
+    """An empty text quantizes to a text pad of 0, which `graph_pads` does
+    not give: the fused pass runs the head at that pad, and the text
+    encoder's first convolution refuses the empty input. The request is
+    counted; no budget and no frame is."""
+    model = EmoVITS(deploy[0], device="cpu")
+    spk, _, emo = _request()
+    with pytest.raises(RuntimeError, match="Kernel size can't be greater than actual input"):
+        model.infer(spk, np.zeros((0, 16), np.float32), emo)
+    assert model.counts == {"requests": 1, "retried": 0, "fused_frames_budget": 0,
+                            "fused_frames_decoded": 0, "fused_frames_served": 0,
+                            **dict.fromkeys(GRAPH_COUNTS, 0)}
 
 
 def test_graph_pads_are_the_reachable_pads(deploy):
     """The text pads are those `_quantize` gives a token count up to
     max_text_len; the frame pads those a count under a budget `fused_frames`
     gives reaches, over every token count and rates up to the ring's cap."""
-    model = EmoVITS(deploy, device="cpu")
+    model = EmoVITS(deploy[0], device="cpu")
     tq, fq, mtl = model.text_quantum, model.frame_quantum, model.max_text_len
     text_pads, frame_pads = model.graph_pads()
     assert text_pads == sorted({model._quantize(n, tq, mtl) for n in range(1, mtl + 1)})
@@ -143,9 +155,9 @@ def test_plain_entries_equal_the_eager_halves(deploy):
     """`HalfGraphs`'s entries on the CPU (its functions on the static
     inputs) equal the eager halves at two text pads and two frame pads, and
     one head entry gives two requests of its pad their own counts."""
-    model = EmoVITS(deploy, device="cpu")
+    model = EmoVITS(deploy[0], device="cpu")
     graphs = HalfGraphs(model.synth, "cpu", model.compute_dtype, model.text_channels,
-                        [32, 64], [64, 128])
+                        [32, 64], [64, 128], capture=False)
     _check_halves(model, graphs, torch.device("cpu"))
 
 
@@ -177,9 +189,10 @@ def _check_halves(model, graphs, dev):
             y_mask = torch.zeros(1, pad, 1)
             y_mask[0, :pad - 5] = 1.0
             z_p, y_mask = z_p.to(dev, dt), y_mask.to(dev, dt)
-            got = graphs.flow_at(pad)(z_p, y_mask, g=g)
+            got = graphs.flows[pad](z_p, y_mask, g=g)
             assert torch.equal(got, synth.flow(z_p, y_mask, g=g))
-    assert graphs.flow_at(3 * 64 + 1) is None
+    assert 3 * 64 + 1 not in graphs.flows and 0 not in graphs.heads
+    assert graphs.head_at(0).graph is None
 
 
 @pytest.fixture
@@ -195,7 +208,7 @@ def test_replayed_halves_equal_the_eager_ones(cuda, deploy):
     replays equal the eager halves bit for bit at text pads 32 and 64 and
     frame pads 64 and 128, and a head graph gives two requests of its pad
     their own counts."""
-    model = EmoVITS(deploy, device=str(cuda))
+    model = EmoVITS(deploy[0], device=str(cuda))
     text_pads, frame_pads = model.graph_pads()
     assert model.counts["graph_captures"] == len(text_pads) + len(frame_pads)
     assert sorted(model._graphs.heads) == text_pads
@@ -207,12 +220,14 @@ def test_replayed_halves_equal_the_eager_ones(cuda, deploy):
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 def test_served_waveforms_equal_an_eager_engine(cuda, deploy, monkeypatch, dtype):
     """Requests of several pads, and one whose durations fill its budget,
-    served by an engine with its graphs and by one without them on the same
-    seeds: the same waveforms; a head replay counted for each fused pass, a
-    flows replay for each one not served again, no capture after set-up."""
-    graphed = EmoVITS(deploy, device=str(cuda), compute_dtype=dtype)
-    eager = EmoVITS(deploy, device=str(cuda), compute_dtype=dtype)
-    eager._graphs = None
+    served by an engine with its graphs and by one whose `HalfGraphs`
+    captured nothing (its entries run their functions) on the same seeds:
+    the same waveforms; a head replay counted for each fused pass, a flows
+    replay for each one not served again, no capture after set-up."""
+    graphed = EmoVITS(deploy[0], device=str(cuda), compute_dtype=dtype)
+    eager = EmoVITS(deploy[0], device=str(cuda), compute_dtype=dtype)
+    eager._graphs = HalfGraphs(eager.synth, cuda, eager.compute_dtype, eager.text_channels,
+                               *eager.graph_pads(), capture=False)
     captures = graphed.counts["graph_captures"]
     cases = [(n, 8.0) for n in (7, 20, 45, 90, 200)] + [(64, 1.0)]
     for i, (n, fpt) in enumerate(cases):

@@ -5,21 +5,23 @@ per-speaker emotion banks `<spkid>.emo` with mtime reload, the pre-sampled
 noise ring, and three synthesis paths:
 
 - `infer_fused`, the default of `infer`: text encoder, durations and the
-  frame count on the device (`Synthesizer.inference_durations`) within a
+  frame count on the device (`Synthesizer.inference_durations`, the count
+  not clamped); the frame count read back to the host and compared with a
   frame budget of `VITS_TPU_FUSED_FRAMES_PER_TOKEN` (default 8) frames per
-  token; the frame count read back to the host; then the alignment, flows
-  and decoder on the device (`inference_decode`) over that count in whole
-  frame quanta, its noise a slice of a device copy of the ring drawn for the
-  budget, and the served samples read back. A request whose durations fill
-  the budget is served again by the exact two-phase path. It decodes in
-  float unless `VITS_TPU_FUSED_Q8=1` (read per call) and the int8 decoder is
-  frozen. `VITS_TPU_FUSED=0` (read at construction) routes `infer` to
-  two-phase. On CUDA its two launch-bound halves replay CUDA graphs
-  captured when the engine is built (`serve/graphs.py`): the head (text
-  encoder, durations, frame count) one a text pad, the reversed flows one
-  a frame pad; the alignment and the decoder stay eager. The graphs' static
-  buffers serve one request at a time (the socket server holds a lock
-  around the engine).
+  token; then the alignment, flows and decoder on the device
+  (`inference_decode`) over that count in whole frame quanta, its noise a
+  slice of a device copy of the ring drawn for the budget, and the served
+  samples read back. A request whose durations fill the budget is served
+  again by the exact two-phase path. It decodes in float unless
+  `VITS_TPU_FUSED_Q8=1` (read per call) and the int8 decoder is frozen.
+  `VITS_TPU_FUSED=0` (read at construction) routes `infer` to two-phase.
+  Its two launch-bound halves, the head (text encoder, durations, frame
+  count) and the reversed flows, run through `serve/graphs.py::HalfGraphs`,
+  one entry a text pad and one a frame pad, on every device. On CUDA, unless
+  an AOT bundle serves, the entries are CUDA graphs captured when the engine
+  is built and replayed; elsewhere they run their functions. The alignment
+  and the decoder run as they are. The entries' static buffers serve one
+  request at a time (the socket server holds a lock around the engine).
 - `_infer_two_phase`: phase 1 encodes text and predicts durations on the
   device; the host turns durations into the alignment and slices the noise
   ring; phase 2 runs the flows and the decoder.
@@ -83,6 +85,7 @@ from vits_tpu_torch.convert import params_from_jax
 from vits_tpu_torch.device import resolve_device
 from vits_tpu_torch.models.synthesizer import Synthesizer, stream_windows
 from vits_tpu_torch.ops.seq import infer_path
+from vits_tpu_torch.serve.graphs import HalfGraphs
 from vits_tpu_torch.utils import checkpoint as ckpt_mod
 from vits_tpu_torch.utils.profiling import span
 from vits_tpu_torch.utils.summary import logger
@@ -233,15 +236,12 @@ class EmoVITS:
                        "fused_frames_decoded": 0, "fused_frames_served": 0,
                        "graph_replays_head": 0, "graph_replays_flow": 0, "graph_captures": 0}
 
-        # the fused pass's launch-bound halves as CUDA graphs, one a pad
-        # (`serve/graphs.py`); the CPU, and an engine that serves AOT
-        # programs, run them eagerly
-        self._graphs = None
-        if self.device.type == "cuda" and self.aot is None:
-            from vits_tpu_torch.serve.graphs import HalfGraphs
-            self._graphs = HalfGraphs(self.synth, self.device, self.compute_dtype,
-                                      self.text_channels, *self.graph_pads())
-            self.counts["graph_captures"] = self._graphs.captures
+        # the fused pass's launch-bound halves, one a pad (`serve/graphs.py`):
+        # CUDA graphs captured here on the card, unless an AOT bundle serves
+        self._graphs = HalfGraphs(self.synth, self.device, self.compute_dtype,
+                                  self.text_channels, *self.graph_pads(),
+                                  capture=self.device.type == "cuda" and self.aot is None)
+        self.counts["graph_captures"] = self._graphs.captures
 
     # ---------------- resources ----------------
     def _load_spkid_mapping(self, mapfn: str):
@@ -465,13 +465,15 @@ class EmoVITS:
         """Batch-1 synthesis on the device (`Synthesizer.inference` in its
         two halves) within the frame budget `fused_frames` gives, the prior
         noise a slice of the device copy of the ring at a start drawn on the
-        host for the budget. The first half's frame count comes back to the
-        host; the flows and the decoder then run over that count in whole
+        host for the budget. The head (`HalfGraphs.head_at` the text pad)
+        gives the frame count unclamped; it comes back to the host, and a
+        count that reaches the budget is served again by the exact two-phase
+        path, with the speaker and emotion vector resolved here (the JAX
+        package resolves them a second time there, so a chained speaker map
+        moves its fallback to another speaker). Otherwise the flows (the
+        frame pad's entry) and the decoder run over that count in whole
         frame quanta, not over the budget, and only the served samples come
-        back. If the durations fill the budget the request is served again by
-        the exact two-phase path, with the speaker and emotion vector
-        resolved here (the JAX package resolves them a second time there, so
-        a chained speaker map moves its fallback to another speaker)."""
+        back."""
         with span("engine.prep"):
             spkid, emo_vec, x_length = self._resolve_request(spkid, text, emo)
             x_pad = self._quantize(x_length, self.text_quantum, self.max_text_len)
@@ -482,21 +484,11 @@ class EmoVITS:
             x[0, :x_length] = text[:x_pad]
             start = np.random.randint(max(self.noise.size - budget * C, 1))
             dt = self.compute_dtype
-            graphs = self._graphs
-            head_graph = graphs.heads.get(x_pad) if graphs else None
-            if head_graph is None:
-                args = (self._tensor(x, dt), self._tensor([x_length], torch.int32),
-                        self._tensor(emo_vec[None], dt), self._tensor([spkid], torch.long))
-            else:
-                args = (torch.as_tensor(x, dtype=dt), x_length,
-                        torch.as_tensor(emo_vec[None], dtype=dt), spkid, duration_rate)
-        if head_graph is None:
-            head = self.synth.inference_durations(*args, length_scale=duration_rate,
-                                                  max_frames=budget)
-        else:  # the frame count unclamped: compared with the budget below
-            with span("synth.head"):
-                head = head_graph(*args)
-            self.counts["graph_replays_head"] += 1
+            head_graph = self._graphs.head_at(x_pad)
+            args = (torch.as_tensor(x, dtype=dt), x_length,
+                    torch.as_tensor(emo_vec[None], dtype=dt), spkid, duration_rate)
+        head = head_graph(*args)  # the frame count unclamped: compared with the budget below
+        self.counts["graph_replays_head"] += head_graph.graph is not None
         with span("engine.durations"):
             y_frames = int(head.y_lengths[0])
         self.counts["fused_frames_budget"] += budget
@@ -507,9 +499,8 @@ class EmoVITS:
         # the budget is whole quanta, so the pad stays within it
         y_pad = self._quantize(y_frames, self.frame_quantum)
         noise = self._noise_dev[start:start + y_pad * C].reshape(1, y_pad, C)
-        flow = graphs.flow_at(y_pad) if graphs else None
-        if flow is not None:
-            self.counts["graph_replays_flow"] += 1
+        flow = self._graphs.flows[y_pad]
+        self.counts["graph_replays_flow"] += flow.graph is not None
         o = self.synth.inference_decode(head, y_pad, noise=noise, flow=flow,
                                         dec_q8=self.dec_q8 if use_q8 else None)[0]
         self.counts["fused_frames_decoded"] += y_pad

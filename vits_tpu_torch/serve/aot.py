@@ -15,11 +15,12 @@ inside it. Device constants that tracing bakes in (the masks' `arange`, the
 positional table) are moved to the serving device when a program loads.
 
 On the GPU, `AOTBundle` runs each bucket by replaying a CUDA graph of its
-program, captured at that bucket's first call: static input buffers, one
-memory pool shared by every bucket, outputs copied out of the graph. That
-is the card's counterpart of calling a compiled `.jaxexp` executable: no
-retrace and no per-op dispatch. A capture that fails raises. On the CPU the
-program's module runs directly.
+program (`serve/graphs.py::Graph`), captured at that bucket's first call
+after two warm-ups, into one memory pool shared by every bucket; each call
+copies the outputs out of the graph, since a phase 1's outputs must outlive
+the phase 2 replay that reads them. That is the card's counterpart of
+calling a compiled `.jaxexp` executable: no retrace and no per-op dispatch.
+A capture that fails raises. On the CPU the program's module runs directly.
 """
 
 from __future__ import annotations
@@ -27,12 +28,13 @@ from __future__ import annotations
 import glob
 import os
 import re
-import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.func import functional_call
+
+from vits_tpu_torch.serve.graphs import Graph
 
 TEXT_BUCKETS = (32, 64, 96, 128, 192, 256, 384)
 FRAME_BUCKETS = (128, 256, 384, 512, 768, 1024)
@@ -109,13 +111,6 @@ def export_aot(synth: nn.Module, outdir: str, hps, text_buckets: Sequence[int] =
     return n
 
 
-class _Graph:
-    """One bucket's CUDA graph: static inputs and the captured outputs."""
-
-    def __init__(self, graph, inputs, outputs):
-        self.graph, self.inputs, self.outputs = graph, inputs, outputs
-
-
 class AOTBundle:
     """The model_p1_t{T}.pt2 / model_p2_t{T}_f{F}.pt2 programs of a
     directory, loaded onto `device` (`cuda` unless "cpu"; the caller
@@ -128,8 +123,7 @@ class AOTBundle:
         self.device = torch.device(device)
         self.p1: Dict[int, nn.Module] = {}
         self.p2: Dict[Tuple[int, int], nn.Module] = {}
-        self.graphs: Dict[tuple, _Graph] = {}
-        self.capture_s: Dict[tuple, float] = {}  # seconds each bucket's capture took
+        self.graphs: Dict[tuple, Graph] = {}
         self._pool = None
         for fn in glob.glob(os.path.join(artifact_dir, "model_p*.pt2")):
             m1, m2 = _P1.search(fn), _P2.search(fn)
@@ -172,32 +166,14 @@ class AOTBundle:
     def _run(self, key, prog: nn.Module, args):
         if self.device.type != "cuda":
             return prog(self.params, *args)
-        entry = self.graphs.get(key)
-        if entry is None:
-            entry = self.graphs[key] = self._capture(key, prog, args)
-        for buf, a in zip(entry.inputs, args):
-            buf.copy_(a)
-        entry.graph.replay()
-        if isinstance(entry.outputs, torch.Tensor):
-            return entry.outputs.clone()
-        return tuple(o.clone() for o in entry.outputs)
-
-    def _capture(self, key, prog, args) -> _Graph:
-        """Capture `prog` at this bucket: two warm-up calls on a side
-        stream, then the capture into the shared pool."""
-        t0 = time.perf_counter()
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        inputs = [a.detach().clone() for a in args]
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
-            for _ in range(2):
-                prog(self.params, *inputs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
-            outputs = prog(self.params, *inputs)
-        torch.cuda.synchronize(self.device)
-        self.capture_s[key] = time.perf_counter() - t0
-        return _Graph(graph, inputs, outputs)
+        graph = self.graphs.get(key)
+        if graph is None:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = Graph(lambda *a: prog(self.params, *a), [a.detach().clone() for a in args])
+            graph.capture(self._pool, warmups=2)
+            self.graphs[key] = graph
+        out = graph(*args)
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        return tuple(o.clone() for o in out)
