@@ -29,10 +29,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 calls), plain ms, bound ms and errors; then on bf16 neg_cent
                 through `maximum_path` at (16, 800, 384) and the step's
                 (16, 400, 96), the path back in bf16, bit-exact;
+     glue     - the float decoder's glue kernels (`csrc/dec_glue.cu`: the
+                gate and the epilogue) against their plain twins at every
+                use the packed decoder body makes, at every stage shape of
+                the base and VCTK decoders over 960 latent frames (B = 2,
+                one utterance valid for 923 frames; T and a ragged T - 1),
+                within 1e-6; each use's kernel ms (device time, from a CUDA
+                graph of 20 calls), plain ms and bytes bound, and one
+                decode's glue (each use times its count);
   3. serving  - write a seeded random base-config checkpoint at full width,
                 serve it two-phase (`_infer_two_phase`) with
                 EmoVITS(device="cuda", quantize=True): 8 calibration
-                requests (float decodes), then int8 requests whose every
+                requests (float decodes, each through the packed body: one
+                decode's glue launches), then int8 requests whose every
                 ResBlock2 chain must go through the kernel (launch counts
                 checked against the chains' plans), each compared with the
                 float decode of the same request; one request's float decode
@@ -43,14 +52,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 default of `infer`) and fused int8 (VITS_TPU_FUSED_Q8=1):
                 each request's latency per mode, the means and medians;
                 fused lengths equal two-phase's, K1 launches per fused int8
-                request equal the plans, its last chain over the request's
+                request equal the plans and the glue's per fused float one a
+                decode's, K1's last chain over the request's
                 frames in whole quanta, not the frame budget, fused int8
                 against fused float; one fused float request held against
                 a CPU copy of the model; one request with a clipped budget
                 through the two-phase retry;
   5. stream   - one request through `infer_stream` against the two-phase
-                float output (atol 1e-4); time to the first chunk and to the
-                whole utterance;
+                float output (atol 1e-4), each window one packed decode's
+                glue launches; time to the first chunk and to the whole
+                utterance;
      bf16     - EmoVITS(compute_dtype="bf16", quantize=True) on the same
                 checkpoint: 8 bf16 calibration requests and the int8 gate,
                 then, after an untimed round of each, 6 requests in turns
@@ -65,7 +76,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
                 alignment: their waveform correlation;
   6. servers  - TTServer(port=0, device="cuda", quantize=True) on the same
                 checkpoint, 2 calibration requests, then fused int8 requests
-                through `protocol.synthesize` (K1 must launch on each), one
+                through `protocol.synthesize` (K1 must launch on each, the
+                glue kernels on the float decodes before), one
                 `synthesize_stream` request and one POST through the HTTP
                 gateway on a free port; each reply a RIFF WAV; the client
                 latency of each; both servers stopped;
@@ -207,6 +219,8 @@ form's those of the bf16 phase, and K2's those of both precisions' training
 steps of both variants, of both runs and their resumes, of both ranks' runs
 and the resume in the ddp phase, of the adapt run, of the options
 model's training steps, and of the dry-run and entry() in the tp phase.
+The glue kernels' are those of the serving, fused and servers phases, read
+the same way; their times are one base decode's at 960 frames.
 The line before the card line is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Needs CUDA; with no GPU it
 exits 2 and prints no result.
@@ -223,6 +237,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -250,6 +265,7 @@ N_INT8 = 4
 N_FUSED = 8           # requests served in the three modes of the fused phase, in turns
 N_BF16 = 6            # ... and in the six modes of the bf16 phase
 RING_FRAMES = 4096    # the noise ring's frames: the longest fused frame budget
+GLUE_FRAMES = 960     # the glue check's latent frames: the mean serve-b1 request's pad
 BF16_MAS_SHAPES = ((16, 800, 384), (TRAIN_B, TRAIN_TY, TRAIN_TX))  # K2 on bf16 neg_cent
 SERVER_CALIB = 2      # the socket server's int8 calibration requests
 SERVER_INT8 = 3       # ... and its requests after the freeze
@@ -282,24 +298,19 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def graph_ms(fn, iters: int = 20) -> float:
-    """Device time of one fn() call: `iters` calls captured in a CUDA graph,
-    the graph replayed and timed with CUDA events, so the host's launch cost
-    (Python, ctypes) is not in the number. fn runs once first, outside."""
+    """Device time of one fn() call: `iters` calls captured in a CUDA graph
+    (`serve/graphs.py::Graph`, after a warm-up on its side stream), the graph
+    replayed and timed with CUDA events, so the host's launch cost (Python,
+    ctypes) is not in the number. fn runs once first, outside."""
+    from vits_tpu_torch.serve.graphs import Graph
     fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
+    graph = Graph(lambda _: [fn() for _ in range(iters)], [torch.zeros(1, device="cuda")])
+    graph.capture(torch.cuda.graph_pool_handle(), warmups=1)
+    graph.graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    graph.replay()
+    graph.graph.replay()
     end.record()
     torch.cuda.synchronize()
     del graph
@@ -439,6 +450,141 @@ def phase_kernels(dev, dtype=torch.float32):
         f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it), "
         f"{sum(r['launches'] for r in rows)} launches")
     return rows, worst, tot
+
+
+def glue_launches_per_decode(m) -> int:
+    """The glue launches of one decode through the packed float body:
+    conv_pre's and conv_post's epilogues, and each stage's upsample
+    epilogue and every dilation step's gate and residual epilogue."""
+    steps = sum(len(d) for d in m.resblock_dilation_sizes)
+    return 2 + len(m.upsample_rates) * (1 + 2 * steps)
+
+
+def glue_uses(m, frames: int):
+    """Each use the packed body makes of the glue kernels in one decode of
+    `frames` latent frames, at its shape: (stage, C, T, vmul, name, count,
+    kind, kwargs), kind "gate" (kwargs: glu) or "epilogue" (kwargs: the
+    wrapper's, with x / acc / out_v as True where the use passes one).
+    Stage 0 is conv_pre's output; conv_post's tanh is (1, T) at the last
+    stage. The counts sum to `glue_launches_per_decode`."""
+    nk, nd = len(m.resblock_kernel_sizes), len(m.resblock_dilation_sizes[0])
+    uic, n = m.upsample_initial_channel, len(m.upsample_rates)
+    uses = [(0, uic, frames, 1, "conv_pre", 1, "epilogue",
+             dict(bias=True, act="lrelu", want_v=False, want_a=True))]
+    vmul = 1
+    for i, u in enumerate(m.upsample_rates):
+        vmul *= u
+        st = (i + 1, uic // 2 ** (i + 1), frames * vmul, vmul)
+        slope = 0.1 if i < n - 1 else 0.01
+        uses += [
+            (*st, "upsample", 1, "epilogue", dict(bias=True, act="lrelu", want_a=True)),
+            (*st, "gate", nk * nd, "gate", dict(glu=str(m.resblock) != "1")),
+            (*st, "residual", nk * (nd - 1), "epilogue",
+             dict(bias=True, x=True, act="lrelu", want_a=True, out_v="x")),
+            (*st, "sum_first", 1, "epilogue", dict(bias=True, x=True)),
+            (*st, "sum", nk - 2, "epilogue", dict(bias=True, x=True, acc=True, out_v="acc")),
+            (*st, "mean", 1, "epilogue", dict(bias=True, x=True, acc=True, div=float(nk),
+                                              act="lrelu", slope=slope, want_v=False,
+                                              want_a=True))]
+    uses.append((n, 1, frames * vmul, vmul, "post", 1, "epilogue",
+                 dict(act="tanh", want_v=False, want_a=True, masked=False)))
+    return [u for u in uses if u[5] > 0]
+
+
+def phase_glue(dev):
+    """The float decoder's glue kernels (`nn/dec_glue.py`) against their
+    plain twins at every use the packed body makes, at every stage shape of
+    the base (ResBlock2: the GLU gate) and VCTK (ResBlock1: tanh) decoders
+    over GLUE_FRAMES latent frames: B = 2 with the first utterance valid for
+    GLUE_FRAMES - 37 frames, at T and at a ragged T - 1 (the scalar path),
+    within 1e-6; then each use at B = 1, every frame valid, timed from a
+    CUDA graph of 20 calls against its bytes at 3.35 TB/s (each input read
+    and each output written once: `dec_glue.counter.bytes`, exact where
+    every frame is valid; the first stage's operands, 8 MB each, stay in
+    the 50 MB L2 across the graph's calls and may beat it). Returns
+    {config: one decode's glue kernel ms, plain ms and bound ms, each use's
+    time times its count}, the launches and the largest difference from a
+    twin."""
+    from vits_tpu_torch.config import default_config_path, get_hparams_from_file
+    from vits_tpu_torch.nn import dec_glue as dg
+
+    def call(kind, kw, c, x, acc, s, valid, vmul, plain=False):
+        if kind == "gate":
+            fn = dg.gate_plain if plain else dg.gate
+            return (fn(c, s, valid, vmul, kw["glu"]),)
+        args = dict(kw)
+        masked = args.pop("masked", True)
+        args.update(bias=s if args.get("bias") else None, x=x if args.get("x") else None,
+                    acc=acc if args.get("acc") else None, valid=valid if masked else None,
+                    vmul=vmul)
+        out_v = {"x": x, "acc": acc, None: None}[args.pop("out_v", None)]
+        if plain:
+            return dg.epilogue_plain(c, **args)
+        return dg.epilogue(c, out_v=out_v, **args)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def operands(B, C, t, kind, has_s):
+        """c, x, acc (B, C, t) and s: a gate's (B, C), a column slice of a
+        wider matrix as the packed body passes it, or an epilogue's bias."""
+        s = (randn(B, 3 * C)[:, C:2 * C] if kind == "gate" else randn(C)) if has_s else None
+        return randn(B, C, t), randn(B, C, t), randn(B, C, t), s
+
+    with open(os.path.join(ROOT, "benchmark", "configs", "vctk.json")) as f:
+        vctk = SimpleNamespace(**json.load(f)["model"])
+    res, worst, launches0 = {}, 0.0, dg.counter.launches
+    for config in ("base", "vctk"):
+        m = vctk if config == "vctk" else get_hparams_from_file(default_config_path(config)).model
+        uses = glue_uses(m, GLUE_FRAMES)
+        if sum(u[5] for u in uses) != glue_launches_per_decode(m):
+            raise RuntimeError(f"[glue] {config}: the uses' counts do not sum to a decode's")
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for stage, C, T, vmul, name, count, kind, kw in uses:
+            has_s = kind == "gate" or bool(kw.get("bias"))
+            # the check: B = 2, valid < pad, at T and a ragged T - 1
+            valid = torch.tensor([GLUE_FRAMES - 37, GLUE_FRAMES], dtype=torch.int32, device=dev)
+            for t in (T, T - 1):
+                c, x, acc, s = operands(2, C, t, kind, has_s)
+                ref = call(kind, kw, c, x, acc, s, valid, vmul, plain=True)
+                got = call(kind, kw, c, x.clone(), acc.clone(), s, valid, vmul)
+                torch.cuda.synchronize()
+                for g_, r_ in zip(got, ref):
+                    if (g_ is None) != (r_ is None):
+                        raise RuntimeError(f"[glue] {config} {name}: outputs differ in kind")
+                    if g_ is None:
+                        continue
+                    err = float((g_ - r_).abs().max())
+                    worst = max(worst, err)
+                    if not torch.allclose(g_, r_, rtol=1e-6, atol=1e-6):
+                        raise RuntimeError(f"[glue] {config} stage {stage} {name} C {C} T {t}: "
+                                           f"max_abs_err {err:.3e} against the twin (1e-6)")
+            # the time: B = 1, every frame valid (the counter's bytes are exact)
+            valid = torch.tensor([GLUE_FRAMES], dtype=torch.int32, device=dev)
+            c, x, acc, s = operands(1, C, T, kind, has_s)
+            before = dg.counter.bytes
+            call(kind, kw, c, x, acc, s, valid, vmul)
+            nbytes = dg.counter.bytes - before
+            ms = graph_ms(lambda: call(kind, kw, c, x, acc, s, valid, vmul))
+            plain_ms = cuda_ms(lambda: call(kind, kw, c, x, acc, s, valid, vmul, plain=True),
+                               iters=3, warmup=1)
+            bound = nbytes / HBM_BW * 1e3
+            log(f"[glue] {config} stage {stage} {name:9s} x{count:2d} C {C:3d} T {T:6d}: kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms (bytes; "
+                f"{100 * bound / ms:.1f}% of it)")
+            tot["ms"] += count * ms
+            tot["plain_ms"] += count * plain_ms
+            tot["bound_ms"] += count * bound
+            del c, x, acc, s
+        torch.cuda.empty_cache()
+        res[config] = tot
+        log(f"[glue] {config}: every use at every stage shape agrees with its twin; one "
+            f"{GLUE_FRAMES}-frame decode's {glue_launches_per_decode(m)} glue launches: kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms "
+            f"({100 * tot['bound_ms'] / tot['ms']:.1f}% of it)")
+    return res, dg.counter.launches - launches0, worst
 
 
 def _mas_case(gen, dev, B, T_y, T_x, t_ys, t_xs):
@@ -1511,7 +1657,7 @@ def phase_serving(dev, workdir):
     the latencies, the calibrated model, its requests and its checkpoint."""
     from vits_tpu_torch.config import default_config_path
     from vits_tpu_torch.infer import EmoVITS
-    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.nn import dec_glue, rb_chain
 
     with open(default_config_path("base")) as f:
         hps_dict = json.load(f)
@@ -1529,15 +1675,17 @@ def phase_serving(dev, workdir):
     hop, sr = model.hop_size, model.sampling_rate
     lat = {"calib": [], "int8": []}
     audio_s = {"calib": 0.0, "int8": 0.0}
-    rb_chain.counter.launches = 0           # main path starts here
+    glue_want = glue_launches_per_decode(model.hps.model)
+    rb_chain.counter.launches = dec_glue.counter.launches = 0  # main path starts here
     per_request = []
     for i, (spk, text, emo, rate) in enumerate(reqs):
-        before = rb_chain.counter.launches
+        before = rb_chain.counter.launches, dec_glue.counter.launches
         np.random.seed(SEED + i)
         t0 = time.perf_counter()
         wav, _ = model._infer_two_phase(spk, text, emo, duration_rate=rate)
         ms = (time.perf_counter() - t0) * 1e3
-        launched = rb_chain.counter.launches - before
+        launched = rb_chain.counter.launches - before[0]
+        glued = dec_glue.counter.launches - before[1]
         frames = len(wav) // hop
         if len(wav) % hop or not 256 <= frames <= 2048:
             raise RuntimeError(f"request {i}: {len(wav)} samples is not 256-2048 frames of {hop}")
@@ -1550,11 +1698,18 @@ def phase_serving(dev, workdir):
         if i == N_CALIB - 1 and model.dec_q8 is None:
             raise RuntimeError(f"the int8 decoder failed its correlation gate "
                                f"(corr {model.q8_corr}); K1 would never run")
+        # the float decodes take the packed body (the calibration's own
+        # decode, with its record, the eager one): a calibration request's
+        # served decode, the freezing request's gate decode, no int8 one
+        if glued != (0 if kind == "int8" else glue_want):
+            raise RuntimeError(f"request {i} ({kind}): the glue kernels launched {glued} "
+                               f"times, expected {0 if kind == 'int8' else glue_want}")
         per_request.append((i, kind, frames, launched, ms, len(wav) / sr, wav))
         if kind != "freeze":
             lat[kind].append(ms)
             audio_s[kind] += len(wav) / sr
     main_launches = rb_chain.counter.launches  # main path ends here
+    glue_launches = dec_glue.counter.launches
     log(f"[serving] int8 gate passed at request {N_CALIB}: corr {model.q8_corr:.6f} "
         f"(>= {model.q8_min_corr})")
 
@@ -1582,6 +1737,7 @@ def phase_serving(dev, workdir):
         log(f"[serving] request {i:2d} {kind:6s}: {len(text):3d} tokens, {frames:4d} frames, "
             f"{secs:.3f} audio s, latency {ms:.2f} ms, K1 launches {launched}, "
             f"int8-vs-float corr {corr:.6f}")
+    log(f"[serving] glue launches {glue_launches}: {glue_want} a float decode, none an int8 one")
     for kind in ("calib", "int8"):
         v = np.array(lat[kind])
         log(f"[serving] {kind}: {len(v)} requests, latency mean {v.mean():.2f} ms "
@@ -1609,7 +1765,7 @@ def phase_serving(dev, workdir):
         f"(tol 2e-3), corr {corr:.8f} (> 0.99999)")
     if not (err <= 2e-3 and corr > 0.99999):
         raise RuntimeError("the float decode on the card disagrees with the CPU")
-    return main_launches, lat, audio_s, model, reqs, ckpt
+    return main_launches, glue_launches, lat, audio_s, model, reqs, ckpt
 
 
 def _timed_call(fn, *a, **k):
@@ -1649,7 +1805,7 @@ def phase_fused(dev, model, ckpt):
     fused float request on the card against a CPU copy of the model, and one
     request whose clipped budget sends it through the two-phase retry."""
     from vits_tpu_torch.infer import EmoVITS
-    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.nn import dec_glue, rb_chain
 
     m, hop, sr = model.hps.model, model.hop_size, model.sampling_rate
     up = int(np.prod(m.upsample_rates))     # samples per frame at the last stage
@@ -1658,7 +1814,8 @@ def phase_fused(dev, model, ckpt):
     lat = {mode: [] for mode in modes}
     audio_s, lengths = 0.0, []
     saved = _env(VITS_TPU_FUSED_Q8=None, VITS_TPU_FUSED_FRAMES_PER_TOKEN=None)
-    rb_chain.counter.launches = 0           # main path starts here
+    glue_want = glue_launches_per_decode(m)
+    rb_chain.counter.launches = dec_glue.counter.launches = 0  # main path starts here
     # one untimed round of the first request in each mode: the fused pass's
     # text-encoder shapes are new to this process; the decoders' change with
     # every request's frame bucket, as they do in service
@@ -1674,12 +1831,16 @@ def phase_fused(dev, model, ckpt):
         for mode in modes:
             _env(VITS_TPU_FUSED_Q8="1" if mode == "fused int8" else "0")
             fn = model._infer_two_phase if mode.startswith("two") else model.infer_fused
-            before = rb_chain.counter.launches
+            before = rb_chain.counter.launches, dec_glue.counter.launches
             rb_chain.counter.last = None
             np.random.seed(SEED + 200 + i)
             (wav, _), ms = _timed_call(fn, spk, text, emo, duration_rate=rate)
-            out[mode] = (wav, ms, rb_chain.counter.launches - before, rb_chain.counter.last)
+            out[mode] = (wav, ms, rb_chain.counter.launches - before[0], rb_chain.counter.last)
             lat[mode].append(ms)
+            glued = dec_glue.counter.launches - before[1]
+            if glued != (glue_want if mode == "fused float" else 0):
+                raise RuntimeError(f"fused phase, request {i}, {mode}: the glue kernels "
+                                   f"launched {glued} times (a float decode makes {glue_want})")
         frames = len(out["two-phase int8"][0]) // hop
         lengths.append(frames * hop)
         audio_s += frames * hop / sr
@@ -1713,6 +1874,9 @@ def phase_fused(dev, model, ckpt):
             + f"; fused int8 vs float corr {corr:.6f}; K1's last M: two-phase "
             f"{out['two-phase int8'][3][0]}, fused {out['fused int8'][3][0]}")
     launches = rb_chain.counter.launches    # main path ends here
+    glue_launches = dec_glue.counter.launches
+    log(f"[fused] glue launches {glue_launches}: {glue_want} a fused float request, none an "
+        f"int8 one")
     for mode in modes:
         v = np.array(lat[mode])
         log(f"[fused] {mode:14s}: {len(v)} requests, latency mean {v.mean():.2f} ms median "
@@ -1769,16 +1933,19 @@ def phase_fused(dev, model, ckpt):
     log(f"[fused] budget clipped to {budget} frames: the two-phase retry served "
         f"{len(wav) // hop} frames, as two-phase does, in {ms:.2f} ms (the fused pass's "
         f"durations, then two-phase int8), K1 launches {retry_launches}")
-    return launches, lat
+    return launches, glue_launches, lat
 
 
 def phase_stream(dev, model, req):
     """One full-width request through `infer_stream` (float decoder,
     windows of the frame quantum with a 24-frame halo) against the two-phase
     float output of the same request: the concatenation within 1e-4 (cuDNN
-    may pick other algorithms per window). The request streams twice: cold
+    may pick other algorithms per window); each window decoded through the
+    packed body, as the two-phase output is (the glue kernels' launches of
+    one decode a window). The request streams twice: cold
     (the first use of the windows' shapes in this process) and warm. Prints
     the time to the first chunk and to the whole utterance of each."""
+    from vits_tpu_torch.nn import dec_glue
     spk, text, emo, rate = req
     dec_q8 = model.dec_q8
     model.dec_q8, model.quantize = None, False
@@ -1789,6 +1956,7 @@ def phase_stream(dev, model, req):
     for run in ("cold", "warm"):
         np.random.seed(SEED + 500)
         chunks = []
+        glue0 = dec_glue.counter.launches
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for chunk in model.infer_stream(spk, text, emo, duration_rate=rate):
@@ -1796,6 +1964,10 @@ def phase_stream(dev, model, req):
                 first_ms = (time.perf_counter() - t0) * 1e3
             chunks.append(chunk)
         total_ms = (time.perf_counter() - t0) * 1e3
+        glued = dec_glue.counter.launches - glue0
+        if glued != len(chunks) * glue_launches_per_decode(model.hps.model):
+            raise RuntimeError(f"[stream] {len(chunks)} windows launched the glue kernels "
+                               f"{glued} times, not once a decode each")
         wav = np.concatenate(chunks)
         err = float(np.abs(wav - ref).max()) if wav.shape == ref.shape else float("inf")
         times[run] = (first_ms, total_ms)
@@ -1998,7 +2170,7 @@ def phase_servers(dev, ckpt):
     `synthesize_stream` request and one POST through the gateway on a free
     port; prints the client-side latency of each and stops both servers."""
     import threading
-    from vits_tpu_torch.nn import rb_chain
+    from vits_tpu_torch.nn import dec_glue, rb_chain
     from vits_tpu_torch.serve import http_server
     from vits_tpu_torch.serve.protocol import synthesize, synthesize_stream
     from vits_tpu_torch.serve.socket_server import TTServer
@@ -2039,21 +2211,29 @@ def phase_servers(dev, ckpt):
                  "Another int8 request, a little shorter than the one before.",
                  "And the last int8 request of this phase, then streaming."]
         texts = texts[:SERVER_CALIB + SERVER_INT8]
-        rb_chain.counter.launches = 0       # main path starts here
+        glue_want = glue_launches_per_decode(m)
+        rb_chain.counter.launches = dec_glue.counter.launches = 0  # main path starts here
         int8_launches = []
         for i, text in enumerate(texts):
             frozen = speecher.dec_q8 is not None
             before = rb_chain.counter.launches
+            glue0 = dec_glue.counter.launches
             n_passes = len(passes)
             t0 = time.perf_counter()
             out = synthesize({"text": text, "spkid": i + 1, "speed": 2.0,
                               "emotion": np.asarray(emo, np.float32)}, remote)
             ms = (time.perf_counter() - t0) * 1e3
             launched = rb_chain.counter.launches - before
+            glued = dec_glue.counter.launches - glue0
             if out is None:
                 raise RuntimeError(f"server request {i}: no reply")
             pcm = _pcm(out["wav"])
             kind = "int8" if frozen else "freeze" if speecher.dec_q8 is not None else "calib"
+            # the packed float body serves a calibration request and the
+            # freezing request's gate; an int8 request decodes no float
+            if glued != (0 if kind == "int8" else glue_want):
+                raise RuntimeError(f"server request {i} ({kind}): the glue kernels launched "
+                                   f"{glued} times, expected {0 if kind == 'int8' else glue_want}")
             note = ""
             if kind == "int8":
                 # one fused int8 pass: the plans' launches, the last chain over
@@ -2077,8 +2257,9 @@ def phase_servers(dev, ckpt):
             log(f"[servers] socket request {i} ({kind}): {len(text)} characters, "
                 f"{len(pcm) / out['sr']:.3f} audio s, client latency {ms:.2f} ms, frontend "
                 f"{out['time_used_frontend']:.2f} ms, backend {out['time_used_backend']:.2f} ms, "
-                f"K1 launches {launched}{note}")
+                f"K1 launches {launched}, glue launches {glued}{note}")
         launches = rb_chain.counter.launches  # main path ends here
+        glue_launches = dec_glue.counter.launches
         if speecher.dec_q8 is None or len(int8_launches) != SERVER_INT8:
             raise RuntimeError(f"the server's int8 requests launched K1 {int8_launches} times")
 
@@ -2114,7 +2295,7 @@ def phase_servers(dev, ckpt):
             httpd.server_close()
         srv.stop()
         _env(**saved)
-    return launches
+    return launches, glue_launches
 
 
 SAT_SPEAKERS = (10001, 10002)  # external ids; run_adapt reserves 1023 and 1022 for them
@@ -3145,12 +3326,14 @@ def main() -> int:
     phase("build", phase_build)
     rows, worst, tot = phase("kernels", phase_kernels, dev)
     _, worst16, tot16 = phase("kernels_bf16", phase_kernels, dev, torch.bfloat16)
+    glue, glue_check_launches, glue_err = phase("glue", phase_glue, dev)
     mas_rows, mas_err = phase("mas", phase_mas, dev)
     with tempfile.TemporaryDirectory() as workdir:
-        launches, lat, audio_s, model, reqs, ckpt = phase("serving", phase_serving, dev, workdir)
+        launches, serving_glue, lat, audio_s, model, reqs, ckpt = phase(
+            "serving", phase_serving, dev, workdir)
         if launches <= 0:
             raise RuntimeError("the serving path launched K1 no time")
-        fused_launches, _ = phase("fused", phase_fused, dev, model, ckpt)
+        fused_launches, fused_glue, _ = phase("fused", phase_fused, dev, model, ckpt)
         if fused_launches <= 0:
             raise RuntimeError("the fused int8 path launched K1 no time")
         phase("stream", phase_stream, dev, model, reqs[N_CALIB])
@@ -3159,7 +3342,10 @@ def main() -> int:
             raise RuntimeError("the bf16 int8 paths launched K1's bf16 form no time")
         del model
         torch.cuda.empty_cache()
-        server_launches = phase("servers", phase_servers, dev, ckpt)
+        server_launches, server_glue = phase("servers", phase_servers, dev, ckpt)
+    if min(serving_glue, fused_glue, server_glue) <= 0:
+        raise RuntimeError(f"the float serving paths launched the glue kernels {serving_glue}, "
+                           f"{fused_glue} and {server_glue} times")
     mas_launches, mel_med, _, _ = phase("training", phase_training, dev)
     if mas_launches <= 0:
         raise RuntimeError("the training path launched K2 no time")
@@ -3217,6 +3403,18 @@ def main() -> int:
         "bound_by": "operations" if tot16["ops_s"] >= tot16["bytes_s"] else "bytes",
         "library_ms": None,
     }, {
+        "name": "dec_glue",
+        "route": "cuda",
+        "source": "vits_tpu_torch/csrc/dec_glue.cu",
+        "replaces": None,  # XLA fuses this glue on the TPU: no kernel of the JAX package
+        "launches": serving_glue + fused_glue + server_glue,
+        "max_abs_err": glue_err,
+        "ms": glue["base"]["ms"],
+        "plain_ms": glue["base"]["plain_ms"],
+        "bound_ms": glue["base"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
         "name": "mas",
         "route": "cuda",
         "source": "vits_tpu_torch/csrc/mas.cu",
@@ -3233,7 +3431,10 @@ def main() -> int:
     }]}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; K1 launches on the main paths: "
         f"serving {launches}, fused {fused_launches}, servers {server_launches}, sat "
-        f"{sat_k1}, bf16 form {bf16_launches}; K2 launches: training {mas_launches}, "
+        f"{sat_k1}, bf16 form {bf16_launches}; glue launches on the main paths: serving "
+        f"{serving_glue}, fused {fused_glue}, servers {server_glue} (the check's "
+        f"{glue_check_launches}; one {GLUE_FRAMES}-frame decode's glue: base "
+        f"{glue['base']['ms']:.4f} ms, VCTK {glue['vctk']['ms']:.4f} ms); K2 launches: training {mas_launches}, "
         f"training_stft {stft_launches}, run {run_launches}, run_stft {run_stft_launches}, "
         f"ddp {ddp_launches}, sat {sat_k2}, options {opt_k2}, tp {tp_k2}; phases: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()))

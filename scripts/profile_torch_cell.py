@@ -21,9 +21,14 @@ fused passes' served frames over their decoded ones and their decoded frames
 and flows replayed CUDA graphs (`head_ms.synth` is a replayed head's device
 ms, beside the eager `enc_ms.synth`), the host's launch calls, the device
 operations and the device ms a request (`graph_captures` in the counts' difference must read 0: no capture
-in the window). The decoders' device ms a call
-is given inclusive of their upsample stages' spans (`dec_ms.synth`) and by
-stage (`dec_stage_ms.synth`). The last line of standard output is one JSON
+in the window), the float decodes through the decoder's packed body
+(`dec_fused_share`, % of requests), its glue kernels' launches, device ms
+and achieved GB/s a request (`nn/dec_glue.counter`'s bytes, each input read
+and each output written once over the pad, over the kernels' device time:
+an upper figure, since the kernels skip the reads past a request's frames),
+and the float decoder's launch calls a call (the operations its spans
+launch). The decoders' device ms a call is given inclusive of their
+upsample stages' spans (`dec_ms.synth`) and by stage (`dec_stage_ms.synth`). The last line of standard output is one JSON
 object: "program" (these numbers) and "result" (the benchmark's line). Needs
 a CUDA device.
 """
@@ -43,7 +48,8 @@ sys.path.insert(0, ROOT)
 BENCH_PREFIX = "bench:"
 # the hand-written kernels, by a fragment of their names: the calls that
 # launch them are read off the trace (K1 and K2 are launched through ctypes)
-KERNELS = {"K1": ("rb2_chain_kernel", "rb2_split_kernel"), "K2": ("mas_kernel", "mas_warp_kernel")}
+KERNELS = {"K1": ("rb2_chain_kernel", "rb2_split_kernel"), "K2": ("mas_kernel", "mas_warp_kernel"),
+           "glue": ("dg_gate_kernel", "dg_epilogue_kernel")}
 
 
 def span_ms(charged, names, per):
@@ -67,6 +73,17 @@ def decoder_ms(charged):
                     if k.startswith(tuple(d + "." for d in DECODERS)))
     return (span_ms(charged, [*DECODERS, *stages], DECODERS),
             {k: span_ms(charged, [k], DECODERS) for k in stages} or None)
+
+
+def decoder_launches(charged):
+    """Device operations launched in the float decoder's spans (its own and
+    its stages'), a call: one launch call each, outside CUDA graphs."""
+    ops = charged.get("span_ops", {})
+    n = charged["span_calls"].get("synth.decoder", 0)
+    if not n:
+        return None
+    return sum(v for k, v in ops.items()
+               if k == "synth.decoder" or k.startswith("synth.decoder.stage")) / n
 
 
 def outside_counts(rec, hps):
@@ -139,6 +156,17 @@ def kernel_launch_calls(events):
     return found
 
 
+def kernel_device_s(events):
+    """{kernel: device seconds} for the KERNELS found in a capture."""
+    from vits_tpu_torch.utils import profiling
+    out = {}
+    for ev in events:
+        for k, frags in KERNELS.items():
+            if profiling.on_device(ev) and any(f in ev.name() for f in frags):
+                out[k] = out.get(k, 0.0) + ev.duration_ns() / 1e9
+    return out
+
+
 def traced_run(run):
     """Call `run()` (a traced benchmark run printing its result line) with
     the harness's trace reduction, serving call and per-layer reading
@@ -156,14 +184,19 @@ def traced_run(run):
         seen["charged"] = profiling.charge(events, prefixes=(profiling.SPAN_PREFIX, BENCH_PREFIX))
         seen["charged"]["host_launch_calls"] = host_launch_calls(events)
         seen["kernel_calls"] = kernel_launch_calls(events)
+        seen["kernel_s"] = kernel_device_s(events)
         return reduce_events(events, window_s)
 
     @contextlib.contextmanager
     def profiled_with_counts(traced, record):
+        from vits_tpu_torch.nn import dec_glue
         engine = seen["engine"]
         before = dict(engine.counts) if engine is not None else None
+        glue = (dec_glue.counter.launches, dec_glue.counter.bytes)
         with profiled(traced, record):
             yield
+        seen["glue"] = {"launches": dec_glue.counter.launches - glue[0],
+                        "bytes": dec_glue.counter.bytes - glue[1]}
         if before is not None:
             seen["counts"] = {k: engine.counts[k] - v for k, v in before.items()}
 
@@ -211,12 +244,21 @@ def report(seen) -> dict:
         "flow_ms.synth": span_ms(c, ["synth.flow"], ["synth.flow"]),
     }
     out["dec_ms.synth"], out["dec_stage_ms.synth"] = decoder_ms(c)
+    out["decoder_launches_per_call"] = decoder_launches(c)
+    glue, glue_s = seen.get("glue") or {}, (seen.get("kernel_s") or {}).get("glue", 0.0)
+    out["glue"] = {"launches": glue.get("launches", 0), "device_s": glue_s,
+                   "GB_per_s": glue["bytes"] / glue_s / 1e9 if glue_s else None,
+                   "share_of_3.35TB_per_s": (100.0 * glue["bytes"] / glue_s / 3.35e12
+                                             if glue_s else None)}
     counts, rec = seen["counts"], seen["rec"] or {}
     if counts:
         out["counts"] = counts
         n = max(counts["requests"], 1)
         out["retry_share.serve"] = 100.0 * counts["retried"] / n
         out.update(per_request(c, counts))
+        out["dec_fused_share"] = 100.0 * counts.get("dec_fused", 0) / n
+        out["glue"]["launches_per_request"] = out["glue"]["launches"] / n
+        out["glue"]["device_ms_per_request"] = 1e3 * out["glue"]["device_s"] / n
         shares = fused_shares(counts)
         out["fused_served.serve"] = shares["fused_served"]
         out["fused_decoded_of_budget"] = shares["fused_decoded_of_budget"]

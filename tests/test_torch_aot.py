@@ -115,10 +115,11 @@ def _phase1_inputs(rng, tb=32, n=27):
 
 
 @pytest.mark.parametrize("fb", FRAME_BUCKETS)
-def test_programs_match_eager_and_jax(aot_dir, fb):
+def test_programs_match_eager_and_jax(aot_dir, fb, monkeypatch):
     """call_p1 / call_p2 exactly equal to the port's eager infer_p1 /
-    infer_p2 on the same weights, and within 1e-4 of the JAX package's
-    jitted phases."""
+    infer_p2 on the same weights (the decoder's eager body, which an export
+    takes; the engine's own decodes take the packed body, within 1e-6 of
+    it), and within 1e-4 of the JAX package's jitted phases."""
     d, js, params = aot_dir
     folded = fold_weight_norm(params)
     model = TEmoVITS(_ckpt(d), device="cpu", aot=True)
@@ -146,8 +147,11 @@ def test_programs_match_eager_and_jax(aot_dir, fb):
     y_mask[0, :y_len] = 1.0
     with torch.inference_mode():
         got2 = model.aot.call_p2(32, fb, attn, m_p, s_p, g, noise, y_mask)
+        packed2 = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
+        monkeypatch.setattr(synth.dec, "_pack", None)  # the eager body
         eager2 = synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
     torch.testing.assert_close(got2, eager2, rtol=0, atol=0)
+    torch.testing.assert_close(packed2, eager2, rtol=0, atol=1e-6)
     want2 = jax.jit(lambda p, a, m, s, gg, n, ym: js.infer_p2(p, a, m, s, gg, n, y_mask=ym))(
         folded, attn.numpy(), m_p.numpy(), s_p.numpy(), g.numpy(), noise.numpy(),
         y_mask.numpy())

@@ -6,22 +6,27 @@ launches its plan gives (tolerance of chip_smoke.py: atol
 form bit-equal at every base-config chain (the plain version rounds to
 bf16 where the kernel does); and MAS against its plain version,
 array-equal (the same f32 adds and maxes), in the form its plan picks, on
-f32 and on bf16 input; and that ranks sharing a card never get NCCL.
-Marked `cuda`; skips
+f32 and on bf16 input; that ranks sharing a card never get NCCL; and the
+float decoder's two glue kernels against their plain twins at every stage
+shape of the base and VCTK decoders, and a packed decode replayed from a
+CUDA graph. Marked `cuda`; skips
 where no CUDA device is present. Run on the GPU machine with
 `python -m pytest --noconftest tests/test_torch_cuda.py -q` (tests/conftest.py
 imports jax, which that machine need not have)."""
 
+import copy
 import dataclasses
 
 import pytest
 import torch
 
 from vits_tpu_torch.models.modules import ResBlock2
-from vits_tpu_torch.nn import rb_chain
+from vits_tpu_torch.models.synthesizer import Generator
+from vits_tpu_torch.nn import dec_glue, rb_chain
 from vits_tpu_torch.nn.core import init_weights
 from vits_tpu_torch.ops import mas
 from vits_tpu_torch.parallel import dist
+from vits_tpu_torch.serve.graphs import Graph
 
 pytestmark = pytest.mark.cuda
 
@@ -320,3 +325,127 @@ def test_ranks_sharing_a_card_never_get_nccl(cuda, monkeypatch):
     with pytest.raises(ValueError, match="NCCL with 2 ranks on one card is refused"):
         dist.init_distributed("cuda", backend="nccl")
     assert not torch.distributed.is_initialized()
+
+
+# the float decoder's glue kernels (nn/dec_glue.py): every stage's shape of
+# the base and VCTK decoders at a 64-frame pad, (C, T) of conv_pre, the four
+# upsample stages and conv_post; B = 2 with the first utterance valid for 37
+# of the 64 frames
+GLUE_SHAPES = {"base": [(512, 64), (256, 512), (128, 3072), (64, 6144), (32, 12288)],
+               "vctk": [(512, 64), (256, 512), (128, 4096), (64, 8192), (32, 16384)]}
+GLUE_POST = {"base": 12288, "vctk": 16384}
+
+
+def _glue_valid(cuda):
+    return torch.tensor([37, 64], dtype=torch.int32, device=cuda)
+
+
+def _assert_twin(got, ref):
+    """The kernels' adds, products, quotients and leaky ReLU are the
+    twin's own; tanhf and expf may differ from PyTorch's by an ulp."""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("config", ["base", "vctk"])
+@pytest.mark.parametrize("stage", range(1, 5))
+def test_gate_kernel_equals_its_twin(cuda, config, stage):
+    """conv1's output to conv2's input at the stage's width: the GLU gate
+    (ResBlock2, base) or tanh (ResBlock1, VCTK), the speaker term a column
+    slice of the decoder's one matrix; a ragged T takes the scalar path."""
+    C, T = GLUE_SHAPES[config][stage]
+    glu = config == "base"
+    gen = torch.Generator().manual_seed(stage)
+    valid, vmul = _glue_valid(cuda), T // 64
+    s_all = torch.randn(2, 3 * C, generator=gen).to(cuda)
+    for t in (T, T - 3):
+        a = torch.randn(2, C, t, generator=gen).to(cuda)
+        s = s_all[:, C:2 * C]
+        before = dec_glue.counter.launches
+        got = dec_glue.gate(a, s, valid, vmul, glu)
+        assert dec_glue.counter.launches == before + 1
+        assert got.shape == (2, C // 2 if glu else C, t)
+        _assert_twin(got, dec_glue.gate_plain(a, s, valid, vmul, glu))
+        assert float(got[0, :, 37 * vmul:].abs().max()) == 0.0
+
+
+# the epilogue's uses, as the packed body makes them: (bias, x, acc, div,
+# act, slope, want_v, want_a, v written in place over x or acc)
+EPILOGUES = {
+    "conv_pre": (True, False, False, 1.0, "lrelu", 0.1, False, True, None),
+    "upsample": (True, False, False, 1.0, "lrelu", 0.1, True, True, None),
+    "residual": (True, True, False, 1.0, "lrelu", 0.1, True, True, "x"),
+    "sum_first": (True, True, False, 1.0, None, 0.1, True, False, None),
+    "sum": (True, True, True, 1.0, None, 0.1, True, False, "acc"),
+    "mean": (True, True, True, 3.0, "lrelu", 0.1, False, True, None),
+    "mean_last": (True, True, True, 3.0, "lrelu", 0.01, False, True, None),
+}
+
+
+@pytest.mark.parametrize("config", ["base", "vctk"])
+@pytest.mark.parametrize("stage", range(5))
+@pytest.mark.parametrize("use", list(EPILOGUES))
+def test_epilogue_kernel_equals_its_twin(cuda, config, stage, use):
+    """Every use of the epilogue at every stage shape (stage 0 is conv_pre's
+    output), in place where the packed body writes in place, at T and at a
+    ragged T (the scalar path); and conv_post's tanh, unmasked."""
+    if (use == "conv_pre") != (stage == 0):
+        pytest.skip("conv_pre's epilogue runs at its own shape alone")
+    has_b, has_x, has_acc, div, act, slope, want_v, want_a, inplace = EPILOGUES[use]
+    C, T = GLUE_SHAPES[config][stage]
+    gen = torch.Generator().manual_seed(10 * stage + len(use))
+    valid, vmul = _glue_valid(cuda), T // 64
+    for t in (T, T - 1):
+        c, x, acc = (torch.randn(2, C, t, generator=gen).to(cuda) for _ in range(3))
+        bias = torch.randn(C, generator=gen).to(cuda) if has_b else None
+        kw = dict(bias=bias, x=x if has_x else None, acc=acc if has_acc else None,
+                  valid=valid, vmul=vmul, div=div, act=act, slope=slope, want_v=want_v,
+                  want_a=want_a)
+        ref = dec_glue.epilogue_plain(c, **kw)
+        out_v = {"x": x, "acc": acc, None: None}[inplace]
+        got = dec_glue.epilogue(c, out_v=out_v, **kw)
+        for g, r in zip(got, ref):
+            assert (g is None) == (r is None)
+            if g is not None:
+                _assert_twin(g, r)
+        if out_v is not None:
+            assert got[0].data_ptr() == out_v.data_ptr()
+    L = GLUE_POST[config]
+    post = torch.randn(2, 1, L, generator=gen).to(cuda) * 3
+    got = dec_glue.epilogue(post, act="tanh", want_v=False, want_a=True)[1]
+    _assert_twin(got, torch.tanh(post))
+
+
+@pytest.mark.parametrize("resblock", ["2", "1"])
+def test_a_packed_decode_replays_from_a_cuda_graph(cuda, resblock, monkeypatch):
+    """A packed decode captured by `serve/graphs.py::Graph` replays, on new
+    inputs, equal to its run outside the graph: the kernels launch on
+    PyTorch's current stream and allocate nothing of their own. Both equal
+    the eager body within 1e-5 with TF32 off, as the serving engine sets
+    it (float order; TF32 convs differ by ~5e-5 between the two bodies)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator().manual_seed(3)
+    dec = init_weights(Generator(8, resblock, (3, 5, 7), ((1, 3, 5),) * 3, (4, 2), 64, (8, 4),
+                                 gin_channels=16), gen).to(cuda).eval()
+    eager_dec = copy.deepcopy(dec)  # keeps no pack
+    assert dec.pack_fused() is not None
+    T = 64
+
+    def inputs(n):
+        z = torch.randn(2, T, 8, generator=gen).to(cuda)
+        m = (torch.arange(T)[None] < torch.tensor([[n], [T]])).float()[..., None].to(cuda)
+        return z * m, torch.randn(2, 16, generator=gen).to(cuda), m
+
+    with torch.inference_mode():
+        graph = Graph(lambda z, g, m: dec(z, g=g, x_mask=m), inputs(50))
+        graph.capture(torch.cuda.graph_pool_handle(), warmups=1)
+        launches = dec_glue.counter.launches
+        z, g, m = inputs(29)
+        out = graph(z, g, m).clone()
+        assert dec_glue.counter.launches == launches  # a replay launches through no wrapper
+        ref = dec(z, g=g, x_mask=m)
+        eager = eager_dec(z, g=g, x_mask=m)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    torch.testing.assert_close(out, eager, rtol=0, atol=1e-5)

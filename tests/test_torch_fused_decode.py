@@ -16,7 +16,17 @@ budget are the one pass bit for bit (a copy of the pass as one body here).
 
 The deployment is the benchmark's TINY configuration with its seeded
 weights (about 3 frames a token), so the reference has the engine's weights.
+
+The float decoder's packed body (`Generator.pack_fused`: bias-free convs on
+(B, C, T), ResBlock1's conv1 narrowed to the channels conv2 reads, the glue
+kernels' plain twins here) equals the eager body through `forward`,
+`infer_p2` and `inference_decode` for both resblock types, with a prefix
+mask and without; an fp32 engine takes it for every float decode and counts
+each (`dec_fused`); a bf16 engine, autograd, a calibration record, a
+tensor-parallel decoder and a torch.export trace keep the eager body.
 """
+
+import copy
 
 import numpy as np
 import pytest
@@ -29,7 +39,11 @@ from benchmark.harness.traffic import hps_of
 from benchmark.harness.weights import build_serving_model, write_checkpoint
 from benchmark.tests.tiny import TINY_CONFIG
 from vits_tpu_torch.infer import EmoVITS
-from vits_tpu_torch.ops.seq import generate_path, sequence_mask
+from vits_tpu_torch.models.synthesizer import Generator, Synthesizer
+from vits_tpu_torch.nn import dec_glue
+from vits_tpu_torch.nn.core import init_weights
+from vits_tpu_torch.ops.seq import generate_path, infer_path, sequence_mask
+from vits_tpu_torch.parallel.mesh import Mesh, TPDecoder
 
 TOKENS = 20  # one 32-token text bucket
 SEED = 11
@@ -192,3 +206,165 @@ def test_the_halves_composed_are_the_one_pass(deploy, dtype):
             assert lengths[0] == max_frames > lengths[1] > 0
             for a, b in zip((o, attn, ym, *lat), (o1, attn1, ym1, *lat1)):
                 assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# the float decoder's packed body (`Generator.pack_fused`) and who takes it
+# ---------------------------------------------------------------------------
+
+def _synth(resblock):
+    """TINY's synthesizer with three resblocks a stage (kernels 3, 5, 7 at
+    dilations 1, 3, 5: their running sum and mean), seeded weights."""
+    cfg = copy.deepcopy(TINY_CONFIG)
+    cfg["model"].update(resblock=resblock, resblock_kernel_sizes=[3, 5, 7],
+                        resblock_dilation_sizes=[[1, 3, 5]] * 3)
+    synth = Synthesizer.from_hps(hps_of(hparams(cfg)))
+    return init_weights(synth, torch.Generator().manual_seed(7)).eval()
+
+
+def _decode_both(synth, caller, mask):
+    """(packed, eager) outputs of one float decode at B = 2 through `caller`,
+    of `synth` with its decoder's pack kept and of a copy without one;
+    mask "prefix": the second utterance valid for 21 of 40 frames, "none":
+    no mask (inference_decode, which always masks: every frame valid)."""
+    rng = np.random.RandomState(13)
+    B, T, C = 2, 40, synth.inter_channels
+    valid = [T, 21] if mask == "prefix" else [T, T]
+    y_mask = sequence_mask(torch.tensor(valid), T)[..., None].float()
+    g = synth.emb_g(torch.tensor([1, 5]))
+    eager = copy.deepcopy(synth)  # keeps no pack
+    assert synth.dec.pack_fused() is not None
+    synths = (synth, eager)
+    with torch.no_grad():
+        if caller == "forward":
+            z = torch.from_numpy(rng.randn(B, T, C).astype(np.float32)) * y_mask
+            m = y_mask if mask == "prefix" else None
+            outs = [s.dec(z, g=g, x_mask=m) for s in synths]
+        elif caller == "infer_p2":
+            x = torch.from_numpy(rng.randn(B, 12, 16).astype(np.float32))
+            emo = torch.from_numpy(rng.randn(B, 1024).astype(np.float32))
+            m_p, s_p, _, g = synth.infer_p1(x, emo, torch.tensor([1, 5]))
+            attn = infer_path(torch.full((B, 12), T / 12.0).ceil(), T)[:, :T]
+            noise = torch.from_numpy(rng.randn(B, T, C).astype(np.float32))
+            m = y_mask if mask == "prefix" else None
+            outs = [s.infer_p2(attn, m_p, s_p, g, noise, m) for s in synths]
+        else:
+            x = torch.from_numpy(rng.randn(B, 12, 16).astype(np.float32))
+            emo = torch.from_numpy(rng.randn(B, 1024).astype(np.float32))
+            head = synth.inference_durations(x, torch.tensor([12, 9]), emo, torch.tensor([1, 5]),
+                                             max_frames=None)
+            frames = int(head.y_lengths.max()) + (8 if mask == "prefix" else 0)
+            if mask == "none":  # every frame of both utterances valid
+                head = head._replace(y_lengths=torch.full_like(head.y_lengths, frames))
+            noise = torch.from_numpy(rng.randn(B, frames, C).astype(np.float32))
+            outs = [s.inference_decode(head, frames, noise=noise)[0] for s in synths]
+    assert (synth.dec.fused_decodes, eager.dec.fused_decodes) == (1, 0)
+    return outs
+
+
+@pytest.mark.parametrize("caller", ["forward", "infer_p2", "inference_decode"])
+@pytest.mark.parametrize("mask", ["prefix", "none"])
+@pytest.mark.parametrize("resblock", ["2", "1"])
+def test_packed_decode_equals_the_eager_body(resblock, mask, caller):
+    """The packed body (bias-free convs in (B, C, T), ResBlock1's conv1
+    narrowed, the glue kernels' plain twins) against the eager body, fp32,
+    within 1e-6 (float order: the biases and speaker terms summed first)."""
+    packed, eager = _decode_both(_synth(resblock), caller, mask)
+    assert packed.shape == eager.shape and packed.dtype == torch.float32
+    np.testing.assert_allclose(packed.numpy(), eager.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("how", ["deepcopy", "to"])
+def test_a_copied_or_moved_decoder_builds_its_pack_again(how, monkeypatch):
+    """After `copy.deepcopy` or `.to()` (a float64 round trip) the kept
+    pack's kernels are views of the decoder's own new weights: an in-place
+    edit of one moves the packed decode as it moves the eager one."""
+    synth = _synth("1")
+    synth.dec.pack_fused()
+    dec = copy.deepcopy(synth.dec) if how == "deepcopy" else synth.dec.double().float()
+    z, g = torch.randn(2, 16, synth.inter_channels), synth.emb_g(torch.tensor([1, 5])).detach()
+    with torch.no_grad():
+        dec.resblocks["1"].convs1["2"].weight.mul_(1.5)
+        packed = dec(z, g=g)
+        monkeypatch.setattr(dec, "_pack", None)
+        eager = dec(z, g=g)
+    assert dec.fused_decodes == 1
+    np.testing.assert_allclose(packed.numpy(), eager.numpy(), atol=1e-6, rtol=0)
+
+
+@pytest.fixture
+def no_packed_body(monkeypatch):
+    """The packed body made to fail: what runs still serves the eager one."""
+    def refuse(*a, **k):
+        raise AssertionError("the packed body ran")
+    monkeypatch.setattr(Generator, "_forward_fused", refuse)
+
+
+@pytest.mark.parametrize("caller", ["bf16_engine", "grad", "record", "tp_decoder", "export"])
+def test_other_callers_take_the_eager_body(deploy, no_packed_body, caller):
+    """With the decoder's pack kept, a bf16 engine counts no packed decode;
+    a forward with grad on, a calibration record, a tensor-parallel
+    decoder's sharded layers (the pack built again: none) and a torch.export
+    trace (the dispatch rule alone) keep the eager body."""
+    synth = _synth("2")
+    dec = synth.dec
+    assert dec.pack_fused() is not None
+    z, g = torch.randn(1, 8, synth.inter_channels), synth.emb_g(torch.tensor([3]))
+    if caller == "bf16_engine":
+        model = EmoVITS(deploy[0], device="cpu", compute_dtype="bf16")
+        spk, text, emo = _request()
+        model.infer(spk, text, emo)
+        assert model.counts["dec_fused"] == model.synth.dec.fused_decodes == 0
+    elif caller == "grad":
+        with torch.enable_grad():
+            assert not dec.takes_fused(z, g)
+            assert dec(z, g=g.detach()).requires_grad
+    elif caller == "record":
+        record = {}
+        with torch.no_grad():
+            dec(z, g=g, record=record)
+        assert "post_in" in record
+    elif caller == "tp_decoder":
+        tp = TPDecoder(dec, Mesh(1, 2, 0, torch.device("cpu"), None), min_channels=8)
+        with torch.no_grad():
+            assert tp.sharded and dec.takes_fused(z, g) and not tp.gen.takes_fused(z, g)
+    else:
+        seen = []
+
+        class Probe(torch.nn.Module):
+            def forward(self, x, g):
+                seen.append(dec.takes_fused(x, g))
+                return x + 1
+
+        g = g.detach()
+        with torch.no_grad():
+            assert dec.takes_fused(z, g)
+            torch.export.export(Probe(), (z, g), strict=False)
+        assert seen == [False]
+    assert dec.fused_decodes == 0
+
+
+@pytest.mark.parametrize("path", ["fused", "retried", "streamed"])
+def test_an_fp32_engine_decodes_through_the_pack(deploy, path, monkeypatch):
+    """Every float decode of an fp32 engine takes the packed body, the
+    fused pass, the two-phase retry and each streamed window alike:
+    `dec_fused` reads the decoder's count of the packed body's runs, and
+    the glue's plain twins ran (no kernel launch on the CPU)."""
+    monkeypatch.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", "1.0" if path == "retried" else "8.0")
+    model = EmoVITS(deploy[0], device="cpu")
+    dec = model.synth.dec
+    calls = []
+    real = Generator._forward_fused
+    monkeypatch.setattr(Generator, "_forward_fused",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    launches = dec_glue.counter.launches
+    spk, text, emo = _request(64, seed=5)
+    for i in range(2):
+        if path == "streamed":
+            chunks = list(model.infer_stream(spk, text, emo))
+        else:
+            model.infer(spk, text, emo)
+    assert model.counts["retried"] == (2 if path == "retried" else 0)
+    n = 2 * len(chunks) if path == "streamed" else 2
+    assert model.counts["dec_fused"] == dec.fused_decodes == len(calls) == n
+    assert dec_glue.counter.launches == launches

@@ -127,14 +127,14 @@ def test_an_empty_text_fails_in_the_text_encoder(deploy):
     """An empty text quantizes to a text pad of 0, which `graph_pads` does
     not give: the fused pass runs the head at that pad, and the text
     encoder's first convolution refuses the empty input. The request is
-    counted; no budget and no frame is."""
+    counted; no budget, no frame and no decode is."""
     model = EmoVITS(deploy[0], device="cpu")
     spk, _, emo = _request()
     with pytest.raises(RuntimeError, match="Kernel size can't be greater than actual input"):
         model.infer(spk, np.zeros((0, 16), np.float32), emo)
     assert model.counts == {"requests": 1, "retried": 0, "fused_frames_budget": 0,
                             "fused_frames_decoded": 0, "fused_frames_served": 0,
-                            **dict.fromkeys(GRAPH_COUNTS, 0)}
+                            "dec_fused": 0, **dict.fromkeys(GRAPH_COUNTS, 0)}
 
 
 def test_graph_pads_are_the_reachable_pads(deploy):

@@ -158,7 +158,8 @@ def test_retried_request_spans_and_counts(deploy, monkeypatch):
     fills its budget and is served again two-phase once its frame count is
     read, decoding nothing first; a FEW-token one fits the 64-frame floor and
     is decoded over its frames in whole quanta. The counters take the
-    budgets by the benchmark's rule."""
+    budgets by the benchmark's rule; both float decodes take the decoder's
+    packed body."""
     monkeypatch.setenv("VITS_TPU_FUSED_FRAMES_PER_TOKEN", "1")
     model = EmoVITS(deploy[0], device="cpu")
     hop, q = model.hop_size, model.frame_quantum
@@ -170,7 +171,7 @@ def test_retried_request_spans_and_counts(deploy, monkeypatch):
     assert model.counts == {"requests": 1, "retried": 1,
                             "fused_frames_budget": fused_budget(LONG, model.hps, 1.0),
                             "fused_frames_decoded": 0, "fused_frames_served": 0,
-                            **NO_GRAPHS}
+                            "dec_fused": 1, **NO_GRAPHS}
     assert len(wav) // hop > fused_budget(LONG, model.hps, 1.0)
 
     spk, text, emo = _request(FEW, seed=4)
@@ -183,7 +184,7 @@ def test_retried_request_spans_and_counts(deploy, monkeypatch):
         "fused_frames_budget": fused_budget(LONG, model.hps, 1.0) + fused_budget(
             FEW, model.hps, 1.0),
         "fused_frames_decoded": -(-frames // q) * q, "fused_frames_served": frames,
-        **NO_GRAPHS}
+        "dec_fused": 2, **NO_GRAPHS}
 
 
 def test_stream_spans(deploy):

@@ -11,7 +11,9 @@ reference with the same seeded weights: the durations agree and the
 waveform within 1e-5 (fp32 on one CPU in both; the full-width model read
 6.1e-7). A conv2 kernel of one ResBlock1 (the third stage's first) scaled by
 1.01 in the engine's copy reads above the cell's 3e-4 (1.4e-3 here; the
-first stage's read ~1.3e-4 at TINY widths).
+first stage's read ~1.3e-4 at TINY widths). Both requests take the decoder's
+packed body, whose ResBlock1 conv1 is a view of the kernel's first
+`inter_channels` rows and computes the full conv's first channels.
 
 At the published widths (the reference on the meta device), the decoder is
 ResBlock1 throughout, its hop is the product of its upsample rates, and the
@@ -24,6 +26,7 @@ import math
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from benchmark.harness.check import compare_served, fused_budget
 from benchmark.harness.common import hparams, load_cell
@@ -35,6 +38,7 @@ from benchmark.reference import flops
 from benchmark.reference.modules import ResBlock1
 from benchmark.tests.tiny import TINY_CONFIG
 from vits_tpu_torch.infer import EmoVITS
+from vits_tpu_torch.models.modules import fused_steps
 
 SEED = 23
 CPU = torch.device("cpu")
@@ -88,9 +92,32 @@ def test_served_request_equals_the_reference(deploy, monkeypatch, frames_per_tok
     frames = len(served["wav"]) // model.hop_size
     retried = frames >= fused_budget(24, hps, frames_per_token)
     assert model.counts["retried"] == int(retried) == int(frames_per_token == 1.0)
+    assert model.counts["dec_fused"] == 1  # the packed body, fused or retried
     readings = compare_served(ref, hps, engine_ring(hps), [served], frames_per_token, CPU)
     assert readings["dur_gap"] == 0.0
     assert readings["wav_rel_err"] <= 1e-5
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_the_narrowed_conv1_is_the_full_conv_first_channels(deploy, k):
+    """The packed body's ResBlock1 conv1 (`fused_steps`) is a contiguous
+    view of the folded kernel's first `inter_channels` output channels (not
+    a copy), and computes the full conv's first channels, the ones conv2
+    reads (fp32; the convs of two widths may block their sums apart: 1e-6)."""
+    model = EmoVITS(deploy[0], device="cpu")
+    rb = next(b for b in model.synth.dec.resblocks.values() if b.kernel_size == k)
+    ic = rb.inter_channels
+    x = torch.randn(2, rb.channels, 50, generator=torch.Generator().manual_seed(k))
+    for i, st in enumerate(fused_steps(rb)):
+        c1 = rb.convs1[str(i)]
+        assert c1.out_channels == 2 * ic and st["w1"].shape[0] == ic
+        assert st["w1"].is_contiguous() and st["w1"].data_ptr() == c1.weight.data_ptr()
+        with torch.no_grad():
+            full = F.conv1d(x, c1.weight, None, padding=c1.padding, dilation=c1.dilation)
+            narrow = F.conv1d(x, st["w1"], None, padding=st["pad1"], dilation=st["dilation"])
+        np.testing.assert_allclose(narrow.numpy(), full[:, :ic].numpy(), atol=1e-6, rtol=0)
+    pack = model.synth.dec.pack_fused()
+    assert pack is not None and not pack["glu"]
 
 
 def test_a_scaled_resblock1_kernel_is_caught(deploy):

@@ -230,11 +230,19 @@ class EmoVITS:
         # two-phase, the fused passes' frame budgets, the frames their flows
         # and decoder ran over (whole frame quanta; none for a pass served
         # again), the frames they served, the heads and flows replayed from
-        # CUDA graphs and the graphs captured (at construction); never
-        # reset: callers take the differences of snapshots
+        # CUDA graphs and the graphs captured (at construction), the float
+        # decodes through the decoder's packed body; never reset: callers
+        # take the differences of snapshots
         self.counts = {"requests": 0, "retried": 0, "fused_frames_budget": 0,
                        "fused_frames_decoded": 0, "fused_frames_served": 0,
-                       "graph_replays_head": 0, "graph_replays_flow": 0, "graph_captures": 0}
+                       "graph_replays_head": 0, "graph_replays_flow": 0, "graph_captures": 0,
+                       "dec_fused": 0}
+
+        # the float decoder's packed body (`Generator.pack_fused`: bias-free
+        # convs and the glue kernels), kept by the decoder, which takes it
+        # for every fp32 decode without grad; bf16 keeps the eager body,
+        # rounded where the JAX package rounds
+        self.synth.dec.pack_fused()
 
         # the fused pass's launch-bound halves, one a pad (`serve/graphs.py`):
         # CUDA graphs captured here on the card, unless an AOT bundle serves
@@ -390,6 +398,11 @@ class EmoVITS:
         self.dec_q8 = dec_q8
         return True
 
+    def _count_fused(self):
+        """`counts["dec_fused"]`: the decoder's own count of the runs of its
+        packed body (`Generator.fused_decodes`), read after a decode."""
+        self.counts["dec_fused"] = self.synth.dec.fused_decodes
+
     def fused_frames(self, x_length: int, duration_rate: float = 1.0) -> int:
         """The fused path's frame budget for x_length tokens:
         VITS_TPU_FUSED_FRAMES_PER_TOKEN (default 8) frames a token at the
@@ -455,6 +468,7 @@ class EmoVITS:
             wav = self.aot.call_p2(aot_tb, aot_fb, attn, m_p, s_p, g, noise, y_mask)
         else:
             wav = self.synth.infer_p2(attn, m_p, s_p, g, noise, y_mask)
+        self._count_fused()  # the int8 gate's float decode included
         with span("engine.to_host"):
             wav = wav[0, :y_length * self.hop_size, 0].float().cpu().numpy()
         return wav, emo_vec
@@ -503,6 +517,7 @@ class EmoVITS:
         self.counts["graph_replays_flow"] += flow.graph is not None
         o = self.synth.inference_decode(head, y_pad, noise=noise, flow=flow,
                                         dec_q8=self.dec_q8 if use_q8 else None)[0]
+        self._count_fused()
         self.counts["fused_frames_decoded"] += y_pad
         self.counts["fused_frames_served"] += y_frames
         with span("engine.to_host"):
@@ -538,6 +553,7 @@ class EmoVITS:
         up = self.hop_size
         for s, lo, hi, keep in stream_windows(y_length, chunk, halo, y_pad):
             seg = self.synth.dec(z[:, lo:hi], g=g, x_mask=y_mask[:, lo:hi])
+            self._count_fused()
             with span("engine.to_host"):
                 chunk_wav = seg[0, (s - lo) * up:(s - lo + keep) * up, 0].float().cpu().numpy()
             yield chunk_wav

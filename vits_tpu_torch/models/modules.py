@@ -33,6 +33,23 @@ def _round16(c: int) -> int:
     return (c // 16) * 16
 
 
+def fused_steps(block) -> list:
+    """A ResBlock's dilation steps as `Generator.forward`'s packed body runs
+    them: conv1 computes only the `inter_channels` channels the gate reads
+    (all of ResBlock2's, the first half of ResBlock1's), its kernel a view
+    of the folded weight; conv2 as it is; the speaker rows of each step
+    (cond's kernel and its bias plus conv1's, over those channels). The
+    biases go to the glue kernels: the convs run without."""
+    ic = block.inter_channels
+    steps = []
+    for i, d in enumerate(block.dilation):
+        c1, c2, cond = block.convs1[str(i)], block.convs2[str(i)], block.conds[str(i)]
+        steps.append({"w1": c1.weight[:ic], "dilation": d, "pad1": c1.padding,
+                      "w2": c2.weight, "pad2": c2.padding, "b2": c2.bias,
+                      "s_w": cond.weight[:ic], "s_b": cond.bias[:ic] + c1.bias[:ic]})
+    return steps
+
+
 def flip_channels(x):
     """modules.Flip: reverse the channel axis."""
     return torch.flip(x, dims=(-1,))
@@ -106,6 +123,8 @@ class ResBlock2(nn.Module):
     through `vits_tpu_torch.nn.rb_chain` (the CUDA kernel on the GPU, its
     plain version on the CPU)."""
 
+    GLU = True  # the packed body's gate: tanh(a) * sigmoid(b) over conv1's halves
+
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: Sequence[int] = (1, 3, 5), gin_channels: int = 0,
                  weight_norm: bool = False):
@@ -176,7 +195,10 @@ class ResBlock1(nn.Module):
     lrelu(x)) + cond(g)) over 2 * inter channels, of which conv2 takes the
     first `inter_channels` (the reference's block is shape-inconsistent
     there; the JAX package takes the first half), masked, then the residual
-    add. Float only: neither package has an int8 form of it."""
+    add. Float only: neither package has an int8 form of it. The packed
+    body (`fused_steps`) computes only the channels conv2 reads."""
+
+    GLU = False  # the packed body's gate: tanh over the channels conv2 reads
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilation: Sequence[int] = (1, 3, 5), gin_channels: int = 0,

@@ -23,6 +23,7 @@ import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from vits_tpu_torch.models.attentions import Encoder
@@ -34,7 +35,9 @@ from vits_tpu_torch.models.modules import (
     ResidualCouplingLayer,
     Swish,
     flip_channels,
+    fused_steps,
 )
+from vits_tpu_torch.nn import dec_glue
 from vits_tpu_torch.nn import quant as Q
 from vits_tpu_torch.nn.core import (Conv1d, ConvTranspose1d, Dense, Embedding, LayerNorm,
                                     dropout, leaky_relu)
@@ -253,7 +256,18 @@ class Generator(nn.Module):
     `quantize` and `forward_q8` of a ResBlock1 decoder raise, as the JAX
     package's `quantize` does. Each stage runs in a span of its own,
     "synth.decoder.stage<i>" (int8: "synth.decoder_q8.stage<i>"), inside the
-    decoder's."""
+    decoder's.
+
+    The float path has two bodies of one function. The eager body is the
+    JAX package's order of ops on (B, T, C). The packed body (taken where
+    `takes_fused` holds, once `pack_fused` has kept its operands; the serving
+    engine builds them in its constructor) runs on (B, C, T), the layout in which
+    cuDNN runs these convs fastest on the H100, converted once on entry:
+    each conv runs without its bias and computes only the channels the next
+    op reads (ResBlock1's conv1 the first half), and everything between and
+    after the convs is one pass of a glue kernel (`nn/dec_glue.py`): a
+    dilation step is conv1 -> gate -> conv2 -> epilogue. Its masks must be
+    prefixes (`sequence_mask`, upsampled), as the serving paths make them."""
 
     def __init__(self, initial_channel, resblock, resblock_kernel_sizes,
                  resblock_dilation_sizes, upsample_rates, upsample_initial_channel,
@@ -278,6 +292,8 @@ class Generator(nn.Module):
         self.ups = nn.ModuleDict(ups)
         self.resblocks = nn.ModuleDict(rbs)
         self.conv_post = Conv1d(uic // 2 ** self.num_upsamples, 1, 7, padding=3, bias=False)
+        self._pack: Optional[Dict] = None  # `pack_fused`'s operands, kept
+        self.fused_decodes = 0  # runs of the packed body; never reset
 
     def _require_int8(self):
         if self.resblock != "2":
@@ -288,10 +304,120 @@ class Generator(nn.Module):
         u, k = self.upsample_rates[i], self.upsample_kernel_sizes[i]
         return k == 2 * ((k - u) // 2) + u
 
+    @torch.no_grad()
+    def pack_fused(self) -> Optional[Dict]:
+        """Build and keep the packed body's operands from the folded weights
+        as they are now: the convs' kernels (views of the weights; ResBlock1's
+        conv1 narrowed to the channels conv2 reads), their biases, and one
+        speaker matrix and bias for every dilation step's gate (each cond
+        Dense's rows, its bias plus conv1's; copies, so a later change to the
+        weights needs `pack_fused` again). Kept and returned: None where a
+        layer is not a plain, folded Conv1d, ConvTranspose1d or Dense
+        (weight-normed training layers, a `TPDecoder`'s `ShardedLayer`s), and
+        those decoders take the eager body."""
+        self._pack = self._build_pack()
+        return self._pack
+
+    def _apply(self, fn, *args, **kwargs):
+        """`Module.to`, `.cpu()` and the like give the weights new tensors: a
+        kept pack (views and copies of the old ones) is built again from
+        them."""
+        out = super()._apply(fn, *args, **kwargs)
+        if self._pack is not None:
+            self.pack_fused()
+        return out
+
+    def __setstate__(self, state):
+        """A copy (`copy.deepcopy`, unpickling) builds its pack again from
+        its own weights: the copied pack's views would not alias them."""
+        super().__setstate__(state)
+        if self._pack is not None:
+            self.pack_fused()
+
+    def _build_pack(self) -> Optional[Dict]:
+        blocks = list(self.resblocks.values())
+        layers = [self.conv_pre, self.conv_post, *self.ups.values()]
+        for rb in blocks:
+            layers += [*rb.convs1.values(), *rb.convs2.values(), *rb.conds.values()]
+        if any(type(m) not in (Conv1d, ConvTranspose1d, Dense) or m.weight_norm
+               or m.spectral_norm or getattr(m, "groups", 1) != 1 for m in layers):
+            return None
+        steps = [fused_steps(rb) for rb in blocks]
+        flat = [st for block in steps for st in block]
+        off = 0
+        for st in flat:
+            st["s"] = (off, off + st["s_w"].shape[0])
+            off = st["s"][1]
+        nk = self.num_kernels
+        return {"glu": type(blocks[0]).GLU,
+                "pre": (self.conv_pre.weight, self.conv_pre.bias, self.conv_pre.padding),
+                "ups": [(up.weight, up.bias, up.stride, up.padding) for up in self.ups.values()],
+                "blocks": [steps[i * nk:(i + 1) * nk] for i in range(self.num_upsamples)],
+                "s_w": torch.cat([st.pop("s_w") for st in flat]),
+                "s_b": torch.cat([st.pop("s_b") for st in flat]),
+                "post": (self.conv_post.weight, self.conv_post.padding)}
+
+    def takes_fused(self, x, g=None, record: Optional[Dict] = None) -> bool:
+        """Whether `forward` runs the packed body: with a pack kept, float32
+        activations and a speaker vector, without a calibration record,
+        outside autograd and outside a torch.compile or torch.export trace.
+        Training (grad on), bf16 (rounded where the JAX package rounds), int8
+        calibration and exported programs keep the eager body."""
+        return (self._pack is not None and record is None and g is not None
+                and x.dtype == torch.float32 and not torch.is_grad_enabled()
+                and not torch.compiler.is_compiling())
+
+    def _forward_fused(self, x, g, x_mask):
+        """The packed body (see the class doc); the eager body's function."""
+        dg, slope, pack = dec_glue, LRELU_SLOPE, self._pack
+        self.fused_decodes += 1
+        with span("synth.decoder"):
+            # a prefix mask's lengths, exact in f32 (x_mask None: all valid)
+            valid = None if x_mask is None else x_mask[:, :, 0].sum(1).to(torch.int32)
+            s = F.linear(g, pack["s_w"], pack["s_b"])  # every gate's speaker term at once
+            w, b, pad = pack["pre"]
+            c = F.conv1d(x.transpose(1, 2).contiguous(), w, None, padding=pad)
+            u = dg.epilogue(c, b, valid=valid, act="lrelu", slope=slope, want_v=False,
+                            want_a=True)[1]
+            vmul, last = 1, len(pack["ups"]) - 1
+            for i, (w, b, stride, pad) in enumerate(pack["ups"]):
+                with span(f"synth.decoder.stage{i}"):
+                    vmul *= stride
+                    c = F.conv_transpose1d(u, w, None, stride=stride, padding=pad)
+                    x0, l0 = dg.epilogue(c, b, valid=valid, vmul=vmul, act="lrelu",
+                                         slope=slope, want_a=True)
+                    acc, blocks = None, pack["blocks"][i]
+                    for j, steps in enumerate(blocks):
+                        xr, lr = x0, l0
+                        for k, st in enumerate(steps):
+                            a = F.conv1d(lr, st["w1"], None, padding=st["pad1"],
+                                         dilation=st["dilation"])
+                            h = dg.gate(a, s[:, st["s"][0]:st["s"][1]], valid, vmul,
+                                        pack["glu"])
+                            c = F.conv1d(h, st["w2"], None, padding=st["pad2"])
+                            kw = dict(x=xr, valid=valid, vmul=vmul)
+                            if k < len(steps) - 1:  # the residual and the next conv1's input
+                                xr, lr = dg.epilogue(c, st["b2"], act="lrelu", slope=slope,
+                                                     want_a=True, out_v=xr if k else None,
+                                                     **kw)
+                            elif j < len(blocks) - 1:  # the resblocks' running sum
+                                acc = dg.epilogue(c, st["b2"], acc=acc, out_v=acc, **kw)[0]
+                            else:  # their mean, activated for the next stage or conv_post
+                                u = dg.epilogue(c, st["b2"], acc=acc, div=len(blocks),
+                                                act="lrelu", slope=slope if i < last else 0.01,
+                                                want_v=False, want_a=True, **kw)[1]
+            w, pad = pack["post"]
+            o = dg.epilogue(F.conv1d(u, w, None, padding=pad), act="tanh", want_v=False,
+                            want_a=True)[1]
+            return o.reshape(o.shape[0], -1, 1)
+
     def forward(self, x, g=None, x_mask=None, record: Optional[Dict] = None):
         """x (B, T, initial), x_mask (B, T, 1) -> (B, T * prod(rates), 1).
         record: a dict that collects the max-abs of every quantizable conv
-        input (the JAX package's calibration points)."""
+        input (the JAX package's calibration points). The packed body runs
+        where `takes_fused` holds."""
+        if self.takes_fused(x, g, record):
+            return self._forward_fused(x, g, x_mask)
         with span("synth.decoder"):
             if record is not None:
                 record["pre_in"] = Q.amax(x)

@@ -210,6 +210,7 @@ class TPDecoder(nn.Module):
                 raise TypeError(f"dec.{name}: a {type(layer).__name__} is not split")
             parent, _, attr = name.rpartition(".")
             setattr(gen.get_submodule(parent), attr, ShardedLayer(layer, dim, mesh))
+        gen.pack_fused()  # of the layers as they now are: none where one is sharded
         self.gen, self.mesh = gen, mesh
         self.sharded = sorted(k for k, d in specs.items() if d is not None)
 

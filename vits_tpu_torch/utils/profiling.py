@@ -114,10 +114,11 @@ def charge(events: Iterable, prefixes: Sequence[str] = (SPAN_PREFIX,)) -> Dict:
     the range's own name) is not an operation.
 
     Returns "span_calls" {name: ranges}, "span_device_s" {name: seconds},
-    "unspanned_device_s" (launched outside every span), "unmatched_device_s"
-    and "unmatched_ops" {op name: seconds} (no launch call found),
-    "launch_calls" {call name: count}, "busy_s", "idle_s" {label: seconds}
-    ("outside spans" where none was open)."""
+    "span_ops" {name: device operations charged}, "unspanned_device_s"
+    (launched outside every span), "unmatched_device_s" and "unmatched_ops"
+    {op name: seconds} (no launch call found), "launch_calls" {call name:
+    count}, "busy_s", "idle_s" {label: seconds} ("outside spans" where none
+    was open)."""
     spans: Dict[int, List[Tuple[int, int, str]]] = {}
     calls: Dict[str, int] = {}
     launches: Dict[int, Tuple[int, str]] = {}
@@ -153,6 +154,7 @@ def charge(events: Iterable, prefixes: Sequence[str] = (SPAN_PREFIX,)) -> Dict:
         timed.append((hit[0], k))
     timed.sort()
     span_s: Dict[str, float] = {}
+    span_ops: Dict[str, int] = {}
     unspanned = 0.0
     for (_, k), lab in zip(timed, _label(spans, [t for t, _ in timed])):
         d = ops[k].duration_ns() / 1e9
@@ -160,6 +162,7 @@ def charge(events: Iterable, prefixes: Sequence[str] = (SPAN_PREFIX,)) -> Dict:
             unspanned += d
         else:
             span_s[lab] = span_s.get(lab, 0.0) + d
+            span_ops[lab] = span_ops.get(lab, 0) + 1
 
     intervals = sorted(_ns(ev) for ev in ops)
     busy, gaps = 0, []
@@ -178,6 +181,7 @@ def charge(events: Iterable, prefixes: Sequence[str] = (SPAN_PREFIX,)) -> Dict:
     for (a, b), lab in zip(gaps, _label(spans, [a for a, _ in gaps])):
         key = lab or "outside spans"
         idle[key] = idle.get(key, 0.0) + (b - a) / 1e9
-    return {"span_calls": calls, "span_device_s": span_s, "unspanned_device_s": unspanned,
+    return {"span_calls": calls, "span_device_s": span_s, "span_ops": span_ops,
+            "unspanned_device_s": unspanned,
             "unmatched_device_s": sum(unmatched.values()), "unmatched_ops": unmatched,
             "launch_calls": launch_calls, "busy_s": busy / 1e9, "idle_s": idle}
